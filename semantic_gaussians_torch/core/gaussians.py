@@ -1,0 +1,87 @@
+"""Gaussian scene state.
+
+Port of semantic_gaussians_tpu.core.gaussians: capacity-padded parameter
+arrays with an `alive` mask kept beside them, and the same activations:
+  scales  = exp(log_scales)
+  opacity = sigmoid(opacity_logits)
+  quat    = normalize(quats)   (w, x, y, z)
+The state is a frozen dataclass of tensors; edits build a new one with
+`dataclasses.replace`, as the JAX package does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Union
+
+import numpy as np
+import torch
+
+FIELDS = ("means", "sh_dc", "sh_rest", "log_scales", "quats", "opacity_logits")
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianParams:
+    """Parameters; every tensor has leading dim = capacity."""
+
+    means: torch.Tensor  # [N, 3]
+    sh_dc: torch.Tensor  # [N, 1, 3]
+    sh_rest: torch.Tensor  # [N, K-1, 3]
+    log_scales: torch.Tensor  # [N, 3]
+    quats: torch.Tensor  # [N, 4] raw (normalized on use)
+    opacity_logits: torch.Tensor  # [N, 1]
+
+    @property
+    def capacity(self) -> int:
+        return self.means.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.means.device
+
+    @property
+    def max_sh_degree(self) -> int:
+        k = 1 + self.sh_rest.shape[1]
+        return int(round(k**0.5)) - 1
+
+    @property
+    def scales(self) -> torch.Tensor:
+        return torch.exp(self.log_scales)
+
+    @property
+    def opacity(self) -> torch.Tensor:
+        return torch.sigmoid(self.opacity_logits)
+
+    @property
+    def rotations(self) -> torch.Tensor:
+        n = torch.linalg.norm(self.quats, dim=-1, keepdim=True)
+        return self.quats / torch.clamp(n, min=1e-12)
+
+    @property
+    def sh_coeffs(self) -> torch.Tensor:
+        """[N, K, 3] full SH stack (dc first)."""
+        return torch.cat([self.sh_dc, self.sh_rest], dim=1)
+
+    def to_numpy(self) -> Dict[str, np.ndarray]:
+        return {f: getattr(self, f).detach().cpu().numpy() for f in FIELDS}
+
+
+def round_capacity(n: int, granule: int = 4096) -> int:
+    """Static capacities come from a small set of sizes."""
+    return max(granule, -(-n // granule) * granule)
+
+
+def params_from_numpy(
+    arrays: Dict[str, np.ndarray], device: Union[str, torch.device]
+) -> GaussianParams:
+    """Carry GaussianParams leaves given as numpy arrays (e.g. the JAX
+    package's, via np.asarray) into the port's state, as float32 on
+    `device`. Values are copied bit for bit (never shared with the caller)."""
+    missing = [f for f in FIELDS if f not in arrays]
+    if missing:
+        raise KeyError(f"missing GaussianParams fields: {missing}")
+    return GaussianParams(
+        **{
+            f: torch.from_numpy(np.array(arrays[f], dtype=np.float32)).to(device)
+            for f in FIELDS
+        }
+    )

@@ -1,0 +1,135 @@
+"""Build, load and count the port's CUDA kernels.
+
+Each source in `csrc/` is compiled by `nvcc` into its own shared library
+with a plain C interface (no PyTorch headers: seconds per build, not
+minutes) and loaded with ctypes. Builds happen at first use, never at
+import, into `csrc/_build/` (listed in .gitignore); a library's file name
+carries a hash of its source and flags, so an edited source rebuilds.
+`build_all` starts one nvcc per source at once. A failed build raises.
+
+Every wrapper that launches a kernel adds one to its `LaunchCounter`, and
+does so nowhere else, so a run can show that its main path went through
+the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = CSRC / "_build"
+# -fmad=false: no multiply-add contraction, so every product and sum rounds
+# exactly as the plain torch versions' separate ops do (the expand cull
+# decision is compared bit for bit; see csrc/expand.cu).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+SOURCES = ("expand", "composite_fwd")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, str] = {}  # name -> nvcc's output (ptxas resource use)
+
+
+class LaunchCounter:
+    """A thread-safe count of kernel launches."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def count(self) -> int:
+        return self._n
+
+
+def _nvcc() -> str:
+    cand = shutil.which("nvcc")
+    if cand is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = str(Path(home) / "bin" / "nvcc")
+    if not Path(cand).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return cand
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Build the named kernels' libraries that are missing, one nvcc per
+    source, all started together. Returns {name: seconds} for the builds
+    run (empty if all were present)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo: List[str] = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    procs = []
+    t0 = time.perf_counter()
+    for name in todo:
+        out = _lib_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    secs: Dict[str, float] = {}
+    errors = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        secs[name] = time.perf_counter() - t0
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return secs
+
+
+def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """The kernel library `name`, built if needed, with each C function's
+    argument types set from `signatures` (return type int: a cudaError_t)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error (a refused launch
+    never runs, and a later synchronize would not report it)."""
+    if err != 0:
+        lib.sgt_error_string.restype = ctypes.c_char_p
+        lib.sgt_error_string.argtypes = [ctypes.c_int]
+        msg = lib.sgt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,107 @@
+"""Port hygiene: the package and chip_smoke.py import no JAX; the package
+imports with neither triton nor nvcc; the entry points refuse to run
+without CUDA unless the CPU was asked for; a failed kernel build raises."""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "semantic_gaussians_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "semantic_gaussians_tpu")
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def test_package_imports_without_triton_or_nvcc(tmp_path):
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in PKG.rglob("*.py") if p.name != "__init__.py"
+    )
+    code = (
+        "import sys; sys.modules['triton'] = None\n"  # any `import triton` fails
+        "import importlib\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path), PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from semantic_gaussians_torch.cli import view_server
+    from semantic_gaussians_torch.config.config import DotDict
+    from semantic_gaussians_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+    cfg = DotDict.wrap({"model": {"model_dir": str(tmp_path)}, "render": {}})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        view_server.ViewerState(cfg)
+    yaml = tmp_path / "v.yaml"
+    yaml.write_text(f"model:\n  model_dir: {tmp_path}\nrender:\n  port: 0\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        view_server.main([str(yaml)])
+
+
+def test_wrappers_reject_other_devices():
+    from semantic_gaussians_torch.ops.composite import composite_forward
+    from semantic_gaussians_torch.ops.expand import expand_pairs
+
+    m = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        expand_pairs(m, m, m, None, m[0], m[0], 512, 1, 1, 4)
+    g = torch.zeros((4, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        composite_forward(g, g, m, m, m, g[0], 1, 16, 32)
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    from semantic_gaussians_torch.ops import kernels
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build_all()
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\necho 'error: no card here' >&2\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", str(fake.parent))
+    with pytest.raises(RuntimeError, match="nvcc failed for expand.cu"):
+        kernels.build_all(["expand"])
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
