@@ -272,7 +272,8 @@ def main():
         args = (geom, colors, binning.pair_gaussian, binning.tile_start, binning.tile_count,
                 bg, grid[1], th, tw)
         got = composite.composite_forward(*args)
-        want = composite.composite_forward_plain(*args)
+        work = {}
+        want = composite.composite_forward_plain(*args, work=work)
         torch.cuda.synchronize()
         if not torch.equal(got[3], want[3]):
             fail(f"composite C={c}: n_contrib differs at {int((got[3] != want[3]).sum())} px")
@@ -285,8 +286,10 @@ def main():
             except AssertionError as e:
                 fail(f"composite C={c} {name} vs plain: {e}")
             err = max(err, float((a - b).abs().max()))
-        comp_cases[c] = dict(args=args, max_abs_err=err, n_contrib=got[3])
-        print(f"composite C={c}: n_contrib exact, max |kernel - plain| = {err:.3g}")
+        comp_cases[c] = dict(args=args, max_abs_err=err, work=work)
+        print(f"composite C={c}: n_contrib exact, max |kernel - plain| = {err:.3g}; "
+              f"(pixel, pair) events evaluated {work['evaluated']}, "
+              f"contributed {work['contributed']}")
 
     # ---------------------------------------------------------------- 3
     from http.server import ThreadingHTTPServer
@@ -408,17 +411,19 @@ def serve_and_time(base, card, state, cam, arrays, budget, binning, expand_in, c
     for c, case in comp_cases.items():
         args = case["args"]
         # bytes: geometry and colour rows of the Gaussians in tile ranges,
-        # their pair ids, tile ranges, the outputs. f32 ops: every pair up
-        # to a pixel's last contributor is evaluated (~18 ops) and counted
-        # as contributing 2C.
-        walked = float(case["n_contrib"].double().sum())
+        # their pair ids, tile ranges, the outputs. f32 ops, counted by the
+        # plain version on these inputs: ~18 for each (pixel, pair) whose
+        # alpha a pixel evaluates before it stops, 2C more for each one
+        # that contributes colour.
+        work = case["work"]
+        cops = 18 * work["evaluated"] + 2 * c * work["contributed"]
         cbytes = (used * (32 + 4 * c) + 4 * in_pairs + 8 * num_tiles
                   + num_tiles * 512 * 4 * (c + 3))
         by_c[c] = dict(
             max_abs_err=case["max_abs_err"],
             ms=cuda_ms(lambda: composite.composite_forward(*args), 20),
             plain_ms=cuda_ms(lambda: composite.composite_forward_plain(*args), 1),
-            bound=(cbytes / PEAK_BYTES, walked * (18 + 2 * c) / PEAK_F32),
+            bound=(cbytes / PEAK_BYTES, cops / PEAK_F32), work=work,
         )
     # Where a request's time goes: the whole HTTP request, the view render
     # alone (state.render: camera, render, host post-processing) and the
@@ -450,30 +455,33 @@ def serve_and_time(base, card, state, cam, arrays, budget, binning, expand_in, c
         "composite_by_channels": {str(c): d for c, d in by_c.items()},
     }))
 
-    def entry(name, source, replaces, r):
+    def entry(name, source, replaces, r, max_abs_err, **extra):
         bytes_ms, ops_ms = (b * 1e3 for b in r["bound"])
+        # `replaces` / `max_abs_err` and `tpu_source` / `max_err_vs_plain`
+        # are two names each for one value: readers of this line know
+        # either set.
         return {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "tpu_source": replaces, "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "max_err_vs_plain": r["max_abs_err"],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "tpu_source": replaces, "launches": launches[name],
+            "max_abs_err": max_abs_err, "max_err_vs_plain": max_abs_err,
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "card": card,
+            "library_ms": None, "card": card, **extra,
         }
 
-    comp = entry("composite_fwd", "semantic_gaussians_torch/csrc/composite_fwd.cu",
-                 "semantic_gaussians_tpu/ops/composite_pallas.py:264", by_c[3])
-    comp["max_abs_err"] = comp["max_err_vs_plain"] = max(d["max_abs_err"] for d in by_c.values())
-    comp["shape"] = "C=3 (RGB/Depth requests); by_channels has every C of the main path"
-    comp["by_channels"] = {str(c): dict(ms=d["ms"], plain_ms=d["plain_ms"],
-                                        max_abs_err=d["max_abs_err"],
-                                        bound_ms=max(d["bound"]) * 1e3)
-                           for c, d in by_c.items()}
     return {"kernels": [
         entry("expand", "semantic_gaussians_torch/csrc/expand.cu",
-              "semantic_gaussians_tpu/ops/expand.py:121", kern["expand"]),
-        comp,
+              "semantic_gaussians_tpu/ops/expand.py:121", kern["expand"],
+              kern["expand"]["max_abs_err"]),
+        entry("composite_fwd", "semantic_gaussians_torch/csrc/composite_fwd.cu",
+              "semantic_gaussians_tpu/ops/composite_pallas.py:264", by_c[3],
+              max(d["max_abs_err"] for d in by_c.values()),
+              shape="C=3 (RGB/Depth requests); by_channels has every C of the main path",
+              by_channels={str(c): dict(ms=d["ms"], plain_ms=d["plain_ms"],
+                                        max_abs_err=d["max_abs_err"],
+                                        bound_ms=max(d["bound"]) * 1e3, work=d["work"])
+                           for c, d in by_c.items()}),
     ]}
 
 

@@ -13,8 +13,9 @@
 //   median depth at the T = 0.5 crossing (init 15.0), final_T, and the
 //   1-based index of the last contributor in the tile range (n_contrib).
 //
-// Grid: one block per (tile, channel block of CB channels); one thread per
-// pixel, so no thread holds a C[768] array. Pairs are staged in shared
+// Grid: one block per (tile, channel block of CB channels: 4 for C <= 4,
+// 8 for C <= 8, else 32); one thread per pixel, so no thread holds a
+// C[768] array. Pairs are staged in shared
 // memory in batches of BATCH: the Gaussian id, its geometry row (mean,
 // conic, opacity, depth) and this block's channel slice of its colour.
 // Geometry and colours are gathered from the per-Gaussian arrays through
@@ -24,19 +25,22 @@
 // termination event (__syncthreads_count), as the TPU kernel's all-done
 // vote does.
 //
-// What bounds it on the H100: at C <= 32 the per-pixel alpha arithmetic
-// (~20 flops per pair per pixel, f32 on the CUDA cores); at wide C the same
-// plus 2 C flops per pair per pixel of colour accumulation, while the
-// colour gather (C floats per pair, read once per tile) stays in L2. Each
-// channel block recomputes alpha, which costs ~2/3 of a CB = 32 block's
-// arithmetic; sharing it across channel blocks (or wgmma for the colour
-// sum) is later work.
+// What bounds it on the H100: f32 arithmetic on the CUDA cores, ~18 ops
+// for each (pixel, pair) whose alpha is evaluated and 2 C more for each
+// one that contributes colour; the colour gather (C floats per pair, read
+// once per tile) stays in L2. Each channel block recomputes alpha, so at
+// C = 768 the alpha work is done 24 times; sharing it across channel
+// blocks (or wgmma for the colour sum) is later work.
 //
 // Numerics: the sequential per-pixel order and the JAX kernel's op order
 // (`_alpha_terms`, composite_pallas.py:206-232; the contribute / terminate
-// / median rules at :330-375). Built with -fmad=false, so products and sums
-// round as the plain torch version's separate ops do; expf and the order of
-// the colour sum are the only differences from it.
+// / median rules at :330-375). The alpha / T / median chain uses the
+// round-to-nearest intrinsics (and the library is built with -fmad=false),
+// so every decision that feeds n_contrib rounds as the plain torch
+// version's separate ops do; expf is the only difference there. The colour
+// sum, the 2 C term that dominates at wide C, is an explicit fmaf: one FFMA
+// per channel instead of a rounded multiply and add, within rtol 1e-5 of
+// the plain version's contraction.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -123,7 +127,7 @@ __global__ void __launch_bounds__(512) composite_fwd_kernel(
       }
       const float w = __fmul_rn(alpha, T);
 #pragma unroll
-      for (int c = 0; c < CB; ++c) acc[c] = __fadd_rn(acc[c], __fmul_rn(w, s_col[i][c]));
+      for (int c = 0; c < CB; ++c) acc[c] = fmaf(w, s_col[i][c], acc[c]);
       if (T > 0.5f && test_t < 0.5f) D = g1.z;
       T = test_t;
       last = base + i + 1;
@@ -192,8 +196,6 @@ int sgt_composite_fwd(const void* geom, const void* colors,
     e = launch<4>(g, col, pg, ts, tc, b, C, num_tiles, grid_w, tile_w, tile_h, oc, od, ot, on, s);
   } else if (C <= 8) {
     e = launch<8>(g, col, pg, ts, tc, b, C, num_tiles, grid_w, tile_w, tile_h, oc, od, ot, on, s);
-  } else if (C <= 16) {
-    e = launch<16>(g, col, pg, ts, tc, b, C, num_tiles, grid_w, tile_w, tile_h, oc, od, ot, on, s);
   } else {
     e = launch<32>(g, col, pg, ts, tc, b, C, num_tiles, grid_w, tile_w, tile_h, oc, od, ot, on, s);
   }

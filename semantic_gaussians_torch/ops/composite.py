@@ -21,7 +21,7 @@ contributor.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,12 +58,17 @@ def pack_geometry(means2d, conics, opacities, depths) -> torch.Tensor:
 
 def composite_forward_plain(
     geom, colors, pair_gaussian, tile_start, tile_count, bg,
-    grid_w: int, tile_h: int, tile_w: int,
+    grid_w: int, tile_h: int, tile_w: int, work: Optional[dict] = None,
 ):
     """Plain torch version of `composite_forward`. Every tile's pixels walk
     their tile range in the same sequential order as the kernel, all tiles
     at once; the weights of each batch of pairs are then contracted with the
-    batch's colours."""
+    batch's colours.
+
+    If `work` is a dict, it receives what these inputs need done, counted in
+    (pixel, pair) events: "evaluated", the pairs whose alpha a pixel computes
+    before it stops (the terminating pair included), and "contributed", the
+    pairs whose colour it accumulates."""
     dev = geom.device
     f32 = torch.float32
     nt = tile_start.shape[0]
@@ -86,6 +91,8 @@ def composite_forward_plain(
     max_count = int(count.max()) if nt else 0
     p_last = max(pair_gaussian.shape[0] - 1, 0)
     zero = torch.zeros((), dtype=f32, device=dev)
+    evaluated = torch.zeros((), dtype=torch.int64, device=dev)
+    contributed = torch.zeros((), dtype=torch.int64, device=dev)
     for b0 in range(0, max_count, PLAIN_BATCH):
         if bool(done.all()):
             break
@@ -115,10 +122,15 @@ def composite_forward_plain(
             D = torch.where(contrib & (T > 0.5) & (test_t < 0.5), r[:, 6, None], D)
             T = torch.where(contrib, test_t, T)
             last = torch.where(contrib, torch.full_like(last, b0 + i + 1), last)
+            if work is not None:
+                evaluated += (has[:, i, None] & ~done).sum()
+                contributed += contrib.sum()
             done = done | term
         col = colors[g] * has[..., None]  # [nt, nb, C]
         acc = acc + torch.bmm(col.transpose(1, 2), w_buf)
     color = acc + bg[None, :, None] * T[:, None, :]
+    if work is not None:
+        work.update(evaluated=int(evaluated), contributed=int(contributed))
     return color, D, T, last
 
 

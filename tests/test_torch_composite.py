@@ -3,7 +3,9 @@
 * the port's plain forward composite vs the JAX Pallas kernel
   (`composite_pairs`, interpret mode) on the same projected Gaussians and
   the same binning, at C = 3 and C = 64;
-* the port's dense oracle vs the JAX `rasterize_dense`.
+* the port's dense oracle vs the JAX `rasterize_dense`;
+* the plain version's work counts (what chip_smoke.py's bound is computed
+  from) vs a per-pixel walk.
 Tolerances are tests/test_rasterize.py's: render and final_T at rtol 1e-4,
 atol 1e-5; depth at 1e-4/1e-4; n_contrib exact. The CUDA kernel is held
 against the same plain version by chip_smoke.py.
@@ -19,7 +21,9 @@ from semantic_gaussians_tpu.ops.composite_ref import rasterize_dense as jax_dens
 from semantic_gaussians_tpu.ops.projection import project_gaussians as jax_project
 from semantic_gaussians_tpu.ops.rasterize import _pack_pair_cols
 from semantic_gaussians_torch.ops.binning import default_pair_budget
-from semantic_gaussians_torch.ops.composite import composite_forward, pack_geometry
+from semantic_gaussians_torch.ops.composite import (
+    composite_forward, composite_forward_plain, pack_geometry,
+)
 from semantic_gaussians_torch.ops.composite_ref import rasterize_dense as torch_dense
 from torch_port_common import (
     W, H, TILE, cameras, jax_params, jax_to_torch_proj, np_, scene_arrays,
@@ -74,6 +78,53 @@ def test_plain_composite_matches_jax_kernel(num_ch):
     _assert_outputs(dict(zip(names, want)), dict(zip(names, got)))
     assert (np_(got[2]) < 0.5).sum() > 500  # dense coverage
     assert int(np_(got[3]).max()) > 10
+
+
+def test_plain_composite_work_counts():
+    """`work` counts, per (pixel, pair), the alphas evaluated before a pixel
+    stops and the colours accumulated: checked against a per-pixel walk,
+    with overlap dense enough that most pixels terminate. Asking for the
+    counts leaves the outputs as they were."""
+    rng = np.random.default_rng(5)
+    n, grid_w, per_tile = 40, 2, 30
+    geom = pack_geometry(
+        torch.tensor(rng.uniform(0, 64, (n, 2)), dtype=torch.float32),
+        torch.tensor(np.stack([rng.uniform(1e-3, 1e-2, n), rng.uniform(-1e-3, 1e-3, n),
+                               rng.uniform(1e-3, 1e-2, n)], 1), dtype=torch.float32),
+        torch.tensor(rng.uniform(0.6, 0.99, n), dtype=torch.float32),
+        torch.tensor(rng.uniform(1, 5, n), dtype=torch.float32),
+    )
+    ids = np.concatenate([rng.choice(n, per_tile, replace=False) for _ in range(grid_w)])
+    args = (geom, torch.rand((n, 3), generator=torch.Generator().manual_seed(5)),
+            torch.tensor(ids, dtype=torch.int32),
+            torch.arange(0, grid_w * per_tile, per_tile, dtype=torch.int32),
+            torch.full((grid_w,), per_tile, dtype=torch.int32), torch.zeros(3),
+            grid_w, TILE[0], TILE[1])
+    work = {}
+    got = composite_forward_plain(*args, work=work)
+    for a, b in zip(got, composite_forward_plain(*args)):
+        assert torch.equal(a, b)
+
+    g = geom.numpy()
+    evaluated = contributed = 0
+    for t in range(grid_w):
+        for p in range(TILE[0] * TILE[1]):
+            x, y = t * TILE[1] + p % TILE[1], p // TILE[1]
+            T = np.float32(1.0)
+            for gid in ids[t * per_tile:(t + 1) * per_tile]:
+                r = g[gid]
+                evaluated += 1
+                dx, dy = r[0] - x, r[1] - y
+                power = -0.5 * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy
+                alpha = min(0.99, r[5] * np.exp(min(power, 0.0)))
+                if power > 0 or alpha < 1 / 255:
+                    continue
+                if T * (1 - alpha) < 1e-4:
+                    break
+                contributed += 1
+                T = T * np.float32(1 - alpha)
+    assert work == dict(evaluated=evaluated, contributed=contributed)
+    assert evaluated < grid_w * per_tile * TILE[0] * TILE[1]  # some pixels stop early
 
 
 def test_dense_oracle_matches_jax():
