@@ -1,22 +1,39 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (semantic_gaussians_torch).
 
-Drives the port's viewer service once at full width on one CUDA card and
-holds each hand-written kernel against its plain PyTorch version:
+Drives the port's two main paths once at full width on one CUDA card, the
+viewer service and RGB training through the train CLI, and holds each
+hand-written kernel against its plain PyTorch version:
 
   1. device: the card's name and power limit, torch and CUDA versions; the
-     kernels are built from csrc/ (one nvcc per source, all at once).
-  2. kernels vs plain versions on the card, at the main path's shapes:
-     pair expand (cull on and off, bit for bit) and the forward composite
-     at C = 1, 3, 5 and 768 (n_contrib exact; color, depth and final_T at
-     rtol 1e-5, atol 1e-6).
-  3. main path: a 100k-Gaussian scene (bench.py's scene law) with 768-dim
+     four kernels are built from csrc/ (one nvcc per source, all at once).
+  2. kernels vs plain versions on the card, at the main paths' shapes:
+     pair expand (cull on and off, bit for bit); the forward composite at
+     C = 1, 3, 5 and 768 (n_contrib exact; color, depth and final_T at
+     rtol 1e-5, atol 1e-6); the composite backward at C = 3 and 768 with a
+     random upstream gradient (rows at rtol 1e-4, atol 1e-5 x column max)
+     and the segment sum on its rows at D = 9 and 774 (rtol 1e-5, atol
+     1e-6 x column max), each of the two bit-identical over two runs.
+  3. viewer path: a 100k-Gaussian scene (bench.py's scene law) with 768-dim
      fused features, served over HTTP at 640x480: RGB, Depth, Semantic and
-     Relevancy renders, an edit, a reset, then render_chn at C = 768. Every
-     kernel's launch count must grow in this phase.
+     Relevancy renders, an edit, a reset, then render_chn at C = 768. All
+     four launch counts are set to 0 before and read after; the forward
+     kernels' must grow.
   4. the tiled renderer against the dense oracle on a small scene.
-  5. times (CUDA events / host clock after warm-up), each stamped with the
-     card's name and power limit.
+  5. viewer times (CUDA events / host clock after warm-up).
+  6. gradients through the tiled path (the kernels) against autograd
+     through the dense oracle, 2000 Gaussians at 128x64.
+  7. training path: a Blender-layout scene (8 views of the 100k target at
+     640x480, points3d.ply of its means with jittered colours) trained for
+     100 steps by `python -m semantic_gaussians_torch.cli.train` (called in
+     process) with densification; every loss finite, train-view PSNR up by
+     at least 1 dB, the alive count changed by densify, no overflow on the
+     last step, all four kernels launched, the saved PLY rendered through
+     the viewer's ViewerState, and one opacity reset checked.
+  8. training times: one train step and its parts, the device-busy share,
+     and the backward kernels' times against their plain versions, bounds
+     and (for the segment sum) index_add_.
+Every number is stamped with the card's name and power limit.
 
 Prints one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -38,6 +55,7 @@ SEED = 0
 N_GAUSSIANS = 100_000
 WIDTH, HEIGHT = 640, 480
 FEAT_DIM = 768
+TRAIN_VIEWS, TRAIN_RADIUS, TRAIN_ITERS = 8, 6.0, 100
 PROMPTS = "wall,floor,chair,table"
 MODES = ("RGB", "Depth", "Semantic", "Relevancy")
 # One identity pose, vertical fov 1.1 rad: the bench camera (bench.py).
@@ -291,6 +309,9 @@ def main():
               f"(pixel, pair) events evaluated {work['evaluated']}, "
               f"contributed {work['contributed']}")
 
+    # ---------------------------------------------------------------- 2b
+    bwd, seg = check_backward_kernels(comp_cases, binning, grid, th, tw)
+
     # ---------------------------------------------------------------- 3
     from http.server import ThreadingHTTPServer
 
@@ -298,7 +319,7 @@ def main():
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
     try:
-        line = serve_and_time(
+        viewer_launches, kernel_lines = serve_and_time(
             f"http://127.0.0.1:{httpd.server_address[1]}", card, state, cam, arrays,
             budget, binning, expand_in, comp_cases,
         )
@@ -307,7 +328,53 @@ def main():
         httpd.server_close()
         server.join(timeout=60)
         tmp.cleanup()
-    print(json.dumps(line))
+    del state, params, alive, proj, geom, feats, channel_cases, comp_cases
+
+    # ---------------------------------------------------------------- 6
+    check_gradients_vs_dense(arrays, cam)
+
+    # ---------------------------------------------------------------- 7
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as train_tmp:
+        trained = train_through_cli(Path(train_tmp), arrays, dev)
+
+        # ------------------------------------------------------------ 8
+        step_times = time_training(trained["scene"], dev, card)
+    kt = time_backward_kernels(bwd, seg)
+    print(json.dumps({"card": card, "training": {
+        k: v for k, v in trained.items() if k != "scene"}, "train_step": step_times,
+        "composite_bwd_by_channels": {str(c): {k: v for k, v in d.items()}
+                                      for c, d in kt["composite_bwd"].items()},
+        "segsum_by_width": {str(d): v for d, v in kt["segsum"].items()}}, default=str))
+    cb, sg = kt["composite_bwd"], kt["segsum"]
+    kernel_lines += [
+        kernel_entry("composite_bwd", "semantic_gaussians_torch/csrc/composite_bwd.cu",
+                     "semantic_gaussians_tpu/ops/composite_pallas.py:450", cb[3],
+                     max(d["max_abs_err"] for d in cb.values()), card,
+                     shape="C=3 (RGB training); by_channels has C=768",
+                     by_channels={str(c): dict(ms=d["ms"], plain_ms=d["plain_ms"],
+                                               max_abs_err=d["max_abs_err"],
+                                               bound_ms=max(d["bound"]) * 1e3,
+                                               work=d["work"])
+                                  for c, d in cb.items()}),
+        kernel_entry("segsum", "semantic_gaussians_torch/csrc/segsum.cu",
+                     "semantic_gaussians_tpu/ops/segsum.py:81", sg[9],
+                     max(d["max_abs_err"] for d in sg.values()), card,
+                     also_replaces="semantic_gaussians_tpu/ops/segsum.py:106",
+                     shape="D=9 (RGB training); by_width has D=774; library is index_add_",
+                     by_width={str(d): dict(ms=v["ms"], plain_ms=v["plain_ms"],
+                                            library_ms=v["library_ms"],
+                                            max_abs_err=v["max_abs_err"],
+                                            bound_ms=max(v["bound"]) * 1e3)
+                               for d, v in sg.items()}),
+    ]
+    # Launches, counted from 0 over each main path's run: the viewer's
+    # requests (phase 3) and the train CLI (phase 7). `launches` is their sum.
+    for e in kernel_lines:
+        by_path = {"viewer": viewer_launches[e["name"]],
+                   "train": trained["launches"][e["name"]]}
+        e["launches"] = sum(by_path.values())
+        e["launches_by_path"] = by_path
+    print(json.dumps({"kernels": kernel_lines}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -316,13 +383,14 @@ def main():
 
 def serve_and_time(base, card, state, cam, arrays, budget, binning, expand_in, comp_cases):
     """Phases 3-5 against the viewer server running at `base`; returns the
-    kernels line. `expand_in` and `comp_cases` are the kernels' main-path
-    inputs from phase 2."""
+    four kernels' launch counts over the viewer path's run and the forward
+    kernels' entries of the kernels line. `expand_in` and `comp_cases` are
+    the kernels' main-path inputs from phase 2."""
     import numpy as np
     import torch
 
     from semantic_gaussians_torch.cli.view_server import encode_png
-    from semantic_gaussians_torch.ops import composite, expand
+    from semantic_gaussians_torch.ops import composite, expand, segsum
     from semantic_gaussians_torch.renderer import render, render_chn
 
     alive, dev, n = state.alive, cam.world_view.device, state.params.capacity
@@ -343,8 +411,9 @@ def serve_and_time(base, card, state, cam, arrays, budget, binning, expand_in, c
         with urllib.request.urlopen(req, timeout=300) as r:
             return json.loads(r.read())
 
-    expand.LAUNCHES.reset()
-    composite.LAUNCHES.reset()
+    counters = (expand.LAUNCHES, composite.LAUNCHES, composite.BWD_LAUNCHES, segsum.LAUNCHES)
+    for c in counters:
+        c.reset()
     images = {m: get(m) for m in MODES}
     edit = post("/edit", "mode=Remove&edit=chair")
     edited = get("RGB")
@@ -353,11 +422,11 @@ def serve_and_time(base, card, state, cam, arrays, budget, binning, expand_in, c
     out_rgb = render(cam, state.params, alive=alive)
     out_feat = render_chn(cam, state.params, state.gauss_feats, alive=alive)
     torch.cuda.synchronize()
-    launches = {"expand": expand.LAUNCHES.count, "composite_fwd": composite.LAUNCHES.count}
-    print(f"main path launches: {launches}; edit {edit}; reset {reset}")
-    for name, cnt in launches.items():
-        if cnt <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    launches = {c.name: c.count for c in counters}
+    print(f"viewer path launches: {launches}; edit {edit}; reset {reset}")
+    for name in ("expand", "composite_fwd"):  # the viewer renders without gradients
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the viewer path")
     if not edit.get("edited"):
         fail(f"the edit selected nothing: {edit}")
     if np.array_equal(edited, images["RGB"]):
@@ -455,34 +524,404 @@ def serve_and_time(base, card, state, cam, arrays, budget, binning, expand_in, c
         "composite_by_channels": {str(c): d for c, d in by_c.items()},
     }))
 
-    def entry(name, source, replaces, r, max_abs_err, **extra):
-        bytes_ms, ops_ms = (b * 1e3 for b in r["bound"])
-        # `replaces` / `max_abs_err` and `tpu_source` / `max_err_vs_plain`
-        # are two names each for one value: readers of this line know
-        # either set.
-        return {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "tpu_source": replaces, "launches": launches[name],
-            "max_abs_err": max_abs_err, "max_err_vs_plain": max_abs_err,
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "card": card, **extra,
-        }
+    return launches, [
+        kernel_entry("expand", "semantic_gaussians_torch/csrc/expand.cu",
+                     "semantic_gaussians_tpu/ops/expand.py:121", kern["expand"],
+                     kern["expand"]["max_abs_err"], card),
+        kernel_entry("composite_fwd", "semantic_gaussians_torch/csrc/composite_fwd.cu",
+                     "semantic_gaussians_tpu/ops/composite_pallas.py:264", by_c[3],
+                     max(d["max_abs_err"] for d in by_c.values()), card,
+                     shape="C=3 (RGB/Depth requests); by_channels has every C of the "
+                           "viewer path",
+                     by_channels={str(c): dict(ms=d["ms"], plain_ms=d["plain_ms"],
+                                               max_abs_err=d["max_abs_err"],
+                                               bound_ms=max(d["bound"]) * 1e3,
+                                               work=d["work"])
+                                  for c, d in by_c.items()}),
+    ]
 
-    return {"kernels": [
-        entry("expand", "semantic_gaussians_torch/csrc/expand.cu",
-              "semantic_gaussians_tpu/ops/expand.py:121", kern["expand"],
-              kern["expand"]["max_abs_err"]),
-        entry("composite_fwd", "semantic_gaussians_torch/csrc/composite_fwd.cu",
-              "semantic_gaussians_tpu/ops/composite_pallas.py:264", by_c[3],
-              max(d["max_abs_err"] for d in by_c.values()),
-              shape="C=3 (RGB/Depth requests); by_channels has every C of the main path",
-              by_channels={str(c): dict(ms=d["ms"], plain_ms=d["plain_ms"],
-                                        max_abs_err=d["max_abs_err"],
-                                        bound_ms=max(d["bound"]) * 1e3, work=d["work"])
-                           for c, d in by_c.items()}),
-    ]}
+
+def kernel_entry(name, source, replaces, r, max_abs_err, card, **extra):
+    """One kernel's entry of the kernels line, without its launch counts
+    (main() adds those once both main paths have run). `replaces` /
+    `max_abs_err` and `tpu_source` / `max_err_vs_plain` are two names each
+    for one value: readers of this line know either set."""
+    bytes_ms, ops_ms = (b * 1e3 for b in r["bound"])
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "tpu_source": replaces,
+        "max_abs_err": max_abs_err, "max_err_vs_plain": max_abs_err,
+        "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": r.get("library_ms"), "card": card, **extra,
+    }
+
+
+def close_enough(got, want, rtol, atol_scale):
+    """None if |got - want| <= rtol |want| + atol_scale * (max |want| of the
+    column) everywhere (columns: the last axis), else a description of the
+    worst element."""
+    import torch
+
+    col_max = want.abs().amax(dim=0, keepdim=True)
+    bound = rtol * want.abs() + atol_scale * col_max
+    bad = (got - want).abs() > bound
+    bad |= ~torch.isfinite(got)
+    if not bool(bad.any()):
+        return None
+    i = int(torch.nonzero(bad.flatten())[0])
+    return (f"{int(bad.sum())} elements out of tolerance; first at flat index {i}: "
+            f"got {float(got.flatten()[i])}, want {float(want.flatten()[i])}")
+
+
+def check_backward_kernels(comp_cases, binning, grid, th, tw):
+    """Kernel 3 (composite backward) and kernels 4/5 (segment sum) against
+    their plain versions on the main path's 100k binning at 640x480, with a
+    random upstream gradient, at C = 3 and C = 768; each kernel run twice
+    must give the same bits. Returns the timing inputs of both kernels."""
+    import torch
+
+    from semantic_gaussians_torch.ops import composite, segsum
+    from semantic_gaussians_torch.ops.rasterize import generation_rows
+
+    dev = binning.tile_start.device
+    nt = binning.tile_start.numel()
+    in_pairs = int(binning.tile_count.sum())
+    n = binning.orig_to_dense.numel()
+    bwd, seg = {}, {}
+    for c in (3, FEAT_DIM):
+        args = comp_cases[c]["args"]
+        _, _, final_t, n_contrib = composite.composite_forward(*args)
+        gen = torch.Generator(dev).manual_seed(SEED + c)
+        g_color = torch.randn((nt, c, th * tw), generator=gen, device=dev)
+        bargs = args[:6] + (g_color, final_t, n_contrib, grid[1], th, tw)
+        got = composite.composite_backward(*bargs)
+        again = composite.composite_backward(*bargs)
+        work = {}
+        want = composite.composite_backward_plain(*bargs, work=work)
+        torch.cuda.synchronize()
+        if not torch.equal(got[:in_pairs], again[:in_pairs]):
+            fail(f"composite_bwd C={c}: two runs differ")
+        why = close_enough(got[:in_pairs], want[:in_pairs], 1e-4, 1e-5)
+        if why:
+            fail(f"composite_bwd C={c} vs plain: {why}")
+        err = float((got[:in_pairs] - want[:in_pairs]).abs().max())
+        bwd[c] = dict(args=bargs, max_abs_err=err, work=work)
+        print(f"composite_bwd C={c}: {in_pairs} rows within rtol 1e-4 / atol 1e-5 x column "
+              f"max, bit-identical over two runs, max |kernel - plain| = {err:.3g}; events "
+              f"evaluated {work['evaluated']}, contributed {work['contributed']}")
+        del again, want
+
+        rows = generation_rows(got, binning)
+        del got
+        d = rows.shape[1]
+        sargs = (rows, binning.gen_owner, n + 1, binning.num_pairs)
+        out = segsum.segsum_contiguous(*sargs)
+        out2 = segsum.segsum_contiguous(*sargs)
+        ref = segsum.segsum_contiguous_plain(*sargs)
+        torch.cuda.synchronize()
+        if not torch.equal(out, out2):
+            fail(f"segsum D={d}: two runs differ")
+        why = close_enough(out, ref, 1e-5, 1e-6)
+        if why:
+            fail(f"segsum D={d} vs plain: {why}")
+        err = float((out - ref).abs().max())
+        seg[d] = dict(args=sargs, max_abs_err=err)
+        print(f"segsum D={d}: within rtol 1e-5 / atol 1e-6 x column max, bit-identical "
+              f"over two runs, max |kernel - plain| = {err:.3g}")
+        del out, out2, ref
+    return bwd, seg
+
+
+def check_gradients_vs_dense(arrays, cam):
+    """Gradients through the tiled path (the kernels) vs autograd through
+    the dense oracle, 2000 Gaussians at 128x64: finite, and within atol
+    2e-3 x the dense gradient's largest |value| (tests/test_rasterize.py's
+    bar)."""
+    import torch
+
+    from semantic_gaussians_torch.core.gaussians import params_from_numpy
+    from semantic_gaussians_torch.renderer import render
+
+    dev = cam.world_view.device
+    small = params_from_numpy({k: v[:2000] for k, v in arrays.items()}, dev)
+    small_cam = cam.resized(128, 64)
+    wimg = torch.rand((64, 128, 3), generator=torch.Generator(dev).manual_seed(SEED),
+                      device=dev)
+    leaves = ("means", "log_scales", "quats", "opacity_logits", "sh_dc")
+    grads = {}
+    for backend in ("tiled", "dense"):
+        p = {k: getattr(small, k).clone().requires_grad_(k in leaves) for k in arrays}
+        out = render(small_cam, type(small)(**p), backend=backend)
+        g = torch.autograd.grad((out["render"] * wimg).sum(), [p[k] for k in leaves])
+        grads[backend] = dict(zip(leaves, g))
+    worst = {}
+    for k in leaves:
+        gt, gd = grads["tiled"][k], grads["dense"][k]
+        if not torch.isfinite(gt).all():
+            fail(f"tiled gradient of {k} is not finite")
+        scale = float(gd.abs().max()) + 1e-8
+        worst[k] = float((gt - gd).abs().max()) / scale
+        if worst[k] > 2e-3:
+            fail(f"tiled vs dense gradient of {k}: scaled error {worst[k]:.3g} > 2e-3")
+    print(f"gradients: tiled (kernels) vs dense oracle on 2000 Gaussians at 128x64, "
+          f"scaled max errors {json.dumps(worst)}")
+    return worst
+
+
+def ring_cameras(centre, radius, views):
+    """OpenGL (Blender) camera-to-world poses on a ring around `centre`,
+    looking at it, with a small alternating elevation."""
+    import numpy as np
+
+    poses = []
+    for i in range(views):
+        ang = 2 * np.pi * i / views
+        pos = centre + radius * np.array([np.sin(ang), 0.15 * (-1) ** i, -np.cos(ang)])
+        fwd = (centre - pos) / np.linalg.norm(centre - pos)
+        right = np.cross(np.array([0.0, 1.0, 0.0]), fwd)
+        right /= np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        c2w = np.eye(4)
+        c2w[:3, :3] = np.stack([right, -down, -fwd], axis=1)
+        c2w[:3, 3] = pos
+        poses.append(c2w)
+    return poses
+
+
+def write_blender_scene(root, arrays, dev):
+    """The training scene: 8 views on a ring around the bench cloud, their
+    640x480 PNGs rendered by the port from the 100k target, and
+    points3d.ply with the target's means and jittered colours. Returns the
+    camera fov_x and the number of points."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from semantic_gaussians_torch.cli.view_server import encode_png
+    from semantic_gaussians_torch.core.gaussians import params_from_numpy
+    from semantic_gaussians_torch.io.ply import save_point_cloud
+    from semantic_gaussians_torch.renderer import render
+    from semantic_gaussians_torch.utils.camera import make_camera
+
+    target = params_from_numpy(arrays, dev)
+    fov_x = 2 * math.atan(math.tan(0.55) * WIDTH / HEIGHT)
+    fov_y = 2 * math.atan(math.tan(fov_x / 2) * HEIGHT / WIDTH)
+    (root / "train").mkdir(parents=True)
+    frames = []
+    for i, c2w in enumerate(ring_cameras(np.array([0.0, 0.0, 4.0]), TRAIN_RADIUS, TRAIN_VIEWS)):
+        flip = c2w.copy()
+        flip[:3, 1:3] *= -1
+        w2c = np.linalg.inv(flip)
+        cam = make_camera(w2c[:3, :3].T, w2c[:3, 3], fov_x, fov_y, WIDTH, HEIGHT, device=dev)
+        with torch.no_grad():
+            img = render(cam, target, bg=torch.zeros(3, device=dev))["render"]
+        png = (torch.clamp(img, 0, 1) * 255 + 0.5).to(torch.uint8).cpu().numpy()
+        (root / "train" / f"r_{i}.png").write_bytes(encode_png(png))
+        frames.append({"file_path": f"./train/r_{i}", "transform_matrix": c2w.tolist()})
+    meta = json.dumps({"camera_angle_x": fov_x, "frames": frames})
+    (root / "transforms_train.json").write_text(meta)
+    (root / "transforms_test.json").write_text(meta)  # evaluate on the training views
+    rng = np.random.default_rng(SEED + 1)
+    cols = arrays["sh_dc"][:, 0, :] * 0.28209479177387814 + 0.5
+    jitter = np.clip(cols + rng.normal(size=cols.shape) * 0.15, 0, 1)
+    save_point_cloud(root / "points3d.ply", arrays["means"], jitter)
+    return fov_x, len(cols)
+
+
+def train_through_cli(tmpdir, arrays, dev):
+    """The training main path: the train CLI, in process, on the Blender
+    scene, with every kernel's launch count set to 0 just before and read
+    just after. Checks the run and returns what the timing phase needs."""
+    import numpy as np
+    import torch
+
+    from semantic_gaussians_torch.cli import train as train_cli
+    from semantic_gaussians_torch.cli.view_server import ViewerState
+    from semantic_gaussians_torch.config.config import default_config_dir, load_config
+    from semantic_gaussians_torch.ops import composite, expand, segsum
+    from semantic_gaussians_torch.pipelines.train import opacity_reset_step
+
+    scene = tmpdir / "scene"
+    t0 = time.perf_counter()
+    write_blender_scene(scene, arrays, dev)
+    print(f"training scene written in {time.perf_counter() - t0:.1f} s: {TRAIN_VIEWS} views "
+          f"at {WIDTH}x{HEIGHT}, {len(arrays['means'])} points")
+    out_dir = tmpdir / "train_out"
+    counters = (expand.LAUNCHES, composite.LAUNCHES, composite.BWD_LAUNCHES, segsum.LAUNCHES)
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    summary = train_cli.main([
+        str(ROOT / "semantic_gaussians_torch" / "config" / "yamls" / "official_train.yaml"),
+        f"scene.scene_path={scene}", f"train.out_dir={out_dir}",
+        f"train.iterations={TRAIN_ITERS}", f"train.test_iterations=[0,{TRAIN_ITERS}]",
+        "train.save_iterations=[]", "train.densify_from_iter=20",
+        "train.densification_interval=20", f"train.densify_until_iter={TRAIN_ITERS}",
+    ])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.name: c.count for c in counters}
+    print(f"train CLI: {TRAIN_ITERS} steps in {wall:.1f} s (scene load, init, tests and PLY "
+          f"save included); launches {launches}")
+    for name, cnt in launches.items():
+        if cnt <= 0:
+            fail(f"kernel {name} was not launched on the training path")
+    log = summary["logs"][0]
+    if not torch.isfinite(log["loss"]).all():
+        fail(f"non-finite loss at steps {torch.nonzero(~torch.isfinite(log['loss'])).tolist()}")
+    (_, psnr0), (_, psnr1) = summary["tests"][0], summary["tests"][TRAIN_ITERS]
+    print(f"train-view PSNR: initial {psnr0:.3f} dB, after {TRAIN_ITERS} steps {psnr1:.3f} dB")
+    if not psnr1 >= psnr0 + 1.0:
+        fail(f"PSNR rose {psnr1 - psnr0:.3f} dB, less than 1 dB")
+    n_points = len(arrays["means"])
+    if not log["densify"] or all(a == n_points for _, a, _ in log["densify"]):
+        fail(f"densify did not change the alive count: {log['densify']}")
+    print(f"densify events (iteration, alive after, dropped): {log['densify']}")
+    if int(log["overflow"][-1]) != 0:
+        fail(f"the last step overflowed its pair budget {log['budget'][-1]}")
+    ply = summary["plys"][-1]
+    cfg = load_config(default_config_dir() / "view_scannet.yaml", [f"model.model_dir={out_dir}"])
+    viewer = ViewerState(cfg)
+    img = viewer.render({"mode": ["RGB"], "w": [str(WIDTH)], "h": [str(HEIGHT)],
+                         "fov": ["1.1"], "pose": [POSE]})
+    if img.shape != (HEIGHT, WIDTH, 3) or img.max() == img.min():
+        fail(f"the trained PLY does not render through ViewerState: {img.shape}")
+    print(f"trained PLY {ply.name} ({int(viewer.alive.sum())} Gaussians) renders through "
+          f"ViewerState")
+    state = opacity_reset_step(summary["state"])
+    if float(state.params.opacity.max()) > 0.01 + 1e-6:
+        fail("opacity_reset_step left an opacity above 0.01")
+    if state.adam.mu.opacity_logits.any() or state.adam.nu.opacity_logits.any():
+        fail("opacity_reset_step left non-zero opacity moments")
+    print("opacity reset: every opacity <= 0.01, opacity moments zero")
+    return dict(
+        scene=scene, launches=launches, psnr=(psnr0, psnr1), densify=log["densify"],
+        cli_wall_s=wall, budgets=sorted(set(log["budget"])),
+        loss_first_last=(float(log["loss"][0]), float(log["loss"][-1])),
+    )
+
+
+def time_training(scene, dev, card):
+    """One train step at 100k / 640x480 from the CLI's initial state: the
+    whole step (median of 25 after warm-up, host clock ending in a
+    synchronize), its parts (render, loss, backward, Adam + statistics,
+    each ended by a synchronize), and the device-busy share of one step."""
+    import torch
+
+    from semantic_gaussians_torch.core.densify import add_stats
+    from semantic_gaussians_torch.core.gaussians import FIELDS, init_from_pcd
+    from semantic_gaussians_torch.core.optimizer import adam_update, lr_tree
+    from semantic_gaussians_torch.io.scene import load_scene, realize_camera
+    from semantic_gaussians_torch.ops.binning import default_pair_budget
+    from semantic_gaussians_torch.pipelines.train import (
+        TrainConfig, init_train_state, train_step,
+    )
+    from semantic_gaussians_torch.renderer import render
+    from semantic_gaussians_torch.utils.losses import photometric_loss
+
+    info = load_scene(scene)
+    cam = realize_camera(info.train_cameras[0], device=dev)
+    params, alive = init_from_pcd(info.points, info.colors, device=dev)
+    state = init_train_state(params, alive)
+    cfg = TrainConfig(spatial_lr_scale=float(info.nerf_normalization["radius"]))
+    if cfg.cut_edge:
+        fail("the timed step assumes no edge crop")
+    bg = torch.zeros(3, device=dev)
+    budget = default_pair_budget(params.capacity)
+
+    def step():
+        out = train_step(state, cam, bg, cfg, 3, pair_budget=budget)
+        torch.cuda.synchronize()
+        return out
+
+    def step_in_parts():
+        """train_step's work, part by part, each part ended by a synchronize."""
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        leaves = {f: getattr(params, f).detach().requires_grad_(True) for f in FIELDS}
+        offset = torch.zeros((params.capacity, 2), device=dev, requires_grad=True)
+        out = render(cam, type(params)(**leaves), alive=alive, bg=bg, active_sh_degree=3,
+                     mean2d_offset=offset, pair_budget=budget)
+        mark()
+        loss = photometric_loss(out["render"], cam.image, cfg.lambda_dssim)
+        mark()
+        grads = torch.autograd.grad(loss, [leaves[f] for f in FIELDS] + [offset])
+        mark()
+        add_stats(state.dstate, grads[-1], out["radii"], cam.width, cam.height)
+        adam_update(type(params)(**dict(zip(FIELDS, grads[:-1]))), state.adam, params,
+                    lr_tree(cfg.hyper, cfg.spatial_lr_scale, state.step), cfg.hyper)
+        mark()
+        return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+
+    step_ms = host_ms(step, 25)
+    torch.cuda.synchronize()
+    runs = [step_in_parts() for _ in range(26)][1:]
+    parts = {k: statistics.median(r[i] for r in runs)
+             for i, k in enumerate(("render", "loss", "backward", "adam"))}
+    prof = profile(step)
+    _, metrics = step()
+    print(json.dumps({"card": card, "train_step_ms": step_ms, "train_step_parts_ms": parts,
+                      "train_step_profile": prof, "pair_budget": budget,
+                      "num_pairs": int(metrics["num_pairs"])}))
+    return dict(step_ms=step_ms, parts=parts, profile=prof)
+
+
+def time_backward_kernels(bwd, seg):
+    """CUDA-event times of kernel 3 and kernels 4/5 at the main path's
+    shapes, their plain versions, their bounds from this run's data, and
+    index_add_ (the one PyTorch call computing the segment sum)."""
+    import torch
+
+    from semantic_gaussians_torch.ops import composite, segsum
+
+    out = {"composite_bwd": {}, "segsum": {}}
+    for c, case in bwd.items():
+        args, work = case["args"], case["work"]
+        geom, colors, pair_gaussian, tile_start, tile_count = args[:5]
+        in_pairs = int(tile_count.sum())
+        used = int(torch.unique(pair_gaussian[:in_pairs]).numel())
+        nt = tile_start.numel()
+        # bytes: geometry and colour rows of the Gaussians in tile ranges,
+        # their pair ids, tile ranges, the upstream gradient, final_T and
+        # n_contrib in; one (6 + C)-float row per pair in a tile range out.
+        # f32 ops, counted by the plain version on these inputs: ~18 per
+        # alpha up to each pixel's n_contrib, 20 + 4C per contributing event.
+        cbytes = (used * (32 + 4 * c) + 4 * in_pairs + 8 * nt + nt * 512 * 4 * (c + 2)
+                  + in_pairs * (6 + c) * 4)
+        cops = 18 * work["evaluated"] + (20 + 4 * c) * work["contributed"]
+        out["composite_bwd"][c] = dict(
+            max_abs_err=case["max_abs_err"], work=work,
+            ms=cuda_ms(lambda: composite.composite_backward(*args), 10),
+            plain_ms=cuda_ms(lambda: composite.composite_backward_plain(*args), 1),
+            bound=(cbytes / PEAK_BYTES, cops / PEAK_F32),
+        )
+    for d, case in seg.items():
+        rows, owners, num_rows, limit = case["args"]
+        live = int(limit)
+        # bytes: the live rows and their owners in, the sums out; one add
+        # per element read.
+        sbytes = live * d * 4 + live * 4 + num_rows * d * 4
+        owners_l = owners[:live].long()
+        rows_l = rows[:live]
+
+        def library():
+            torch.zeros((num_rows, d), device=rows.device).index_add_(0, owners_l, rows_l)
+
+        out["segsum"][d] = dict(
+            max_abs_err=case["max_abs_err"],
+            ms=cuda_ms(lambda: segsum.segsum_contiguous(*case["args"]), 20),
+            plain_ms=cuda_ms(lambda: segsum.segsum_contiguous_plain(*case["args"]), 3),
+            library_ms=cuda_ms(library, 20),
+            bound=(sbytes / PEAK_BYTES, live * d / PEAK_F32),
+        )
+    return out
 
 
 if __name__ == "__main__":

@@ -6,15 +6,20 @@ arrays with an `alive` mask kept beside them, and the same activations:
   opacity = sigmoid(opacity_logits)
   quat    = normalize(quats)   (w, x, y, z)
 The state is a frozen dataclass of tensors; edits build a new one with
-`dataclasses.replace`, as the JAX package does.
+`dataclasses.replace`, as the JAX package does. `init_from_pcd` makes the
+initial state from a point cloud (the JAX package's, with the port's own
+torch KNN in place of its native or blocked-JAX one).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from ..ops.knn import knn_mean_sq_dist
+from ..utils.sh import rgb_to_sh
 
 FIELDS = ("means", "sh_dc", "sh_rest", "log_scales", "quats", "opacity_logits")
 
@@ -85,3 +90,51 @@ def params_from_numpy(
             for f in FIELDS
         }
     )
+
+
+def init_from_pcd(
+    points: np.ndarray,
+    colors: np.ndarray,
+    sh_degree: int = 3,
+    capacity: Optional[int] = None,
+    init_opacity: float = 0.1,
+    device: Union[str, torch.device] = "cpu",
+) -> Tuple[GaussianParams, torch.Tensor]:
+    """Gaussians from a point cloud: (params, alive mask), as the JAX
+    package's init_from_pcd. SH DC from RGB, higher bands zero, isotropic
+    log-scale = 0.5 log(max(mean 3-NN squared distance, 1e-7)), identity
+    quaternion, opacity logit = logit(init_opacity). Slots past the cloud
+    are dead (zeros, opacity logit -20)."""
+    n = points.shape[0]
+    cap = capacity or round_capacity(n)
+    k = (sh_degree + 1) ** 2
+    f32 = torch.float32
+    pts = torch.as_tensor(np.asarray(points, np.float32)).to(device)
+    dist2 = torch.clamp(knn_mean_sq_dist(pts), min=1e-7)
+    log_scale = 0.5 * torch.log(dist2)
+
+    def pad(x, fill=0.0):
+        out = torch.full((cap,) + tuple(x.shape[1:]), fill, dtype=f32, device=device)
+        out[:n] = x
+        return out
+
+    cols = torch.as_tensor(np.asarray(colors, np.float32)).to(device)
+    quats = torch.zeros((cap, 4), dtype=f32, device=device)
+    quats[:, 0] = 1.0
+    p0 = torch.tensor(init_opacity, dtype=f32)
+    logit = float(torch.log(p0 / (1 - p0)))
+    opacity_logits = torch.full((cap, 1), -20.0, dtype=f32, device=device)
+    opacity_logits[:n] = logit
+    params = GaussianParams(
+        means=pad(pts),
+        sh_dc=pad(rgb_to_sh(cols)[:, None, :]),
+        sh_rest=torch.zeros((cap, k - 1, 3), dtype=f32, device=device),
+        log_scales=pad(log_scale[:, None].expand(n, 3)),
+        quats=quats,
+        opacity_logits=opacity_logits,
+    )
+    return params, torch.arange(cap, device=device) < n
+
+
+def num_alive(alive: torch.Tensor) -> torch.Tensor:
+    return torch.sum(alive.to(torch.int32))

@@ -33,8 +33,9 @@
 // blocks (or wgmma for the colour sum) is later work.
 //
 // Numerics: the sequential per-pixel order and the JAX kernel's op order
-// (`_alpha_terms`, composite_pallas.py:206-232; the contribute / terminate
-// / median rules at :330-375). The alpha / T / median chain uses the
+// (`_alpha_terms`, composite_pallas.py:206-232, in alpha.cuh, which the
+// backward kernel shares; the contribute / terminate / median rules at
+// :330-375). The alpha / T / median chain uses the
 // round-to-nearest intrinsics (and the library is built with -fmad=false),
 // so every decision that feeds n_contrib rounds as the plain torch
 // version's separate ops do; expf is the only difference there. The colour
@@ -44,14 +45,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "alpha.cuh"
+
 namespace {
 
+using sgt::GEOM;
+using sgt::T_EPS;
 constexpr int BATCH = 256;
-constexpr float ALPHA_CUTOFF = 1.0f / 255.0f;
-constexpr float T_EPS = 1e-4f;
-constexpr float MAX_ALPHA = 0.99f;
 constexpr float MEDIAN_DEPTH_INIT = 15.0f;
-constexpr int GEOM = 8;  // mx, my, ca, cb, cc, op, depth, pad
 
 template <int CB>
 __global__ void __launch_bounds__(512) composite_fwd_kernel(
@@ -76,11 +77,8 @@ __global__ void __launch_bounds__(512) composite_fwd_kernel(
   const int nc = min(CB, C - c0);
   const int px = blockDim.x;
   const int pix = threadIdx.x;
-  const int tyi = t / grid_w, txi = t % grid_w;
-  const float tox = __fadd_rn((float)(txi * tile_w), 0.5f * (float)(tile_w - 1));
-  const float toy = __fadd_rn((float)(tyi * tile_h), 0.5f * (float)(tile_h - 1));
-  const float lx = __fsub_rn((float)(pix % tile_w), 0.5f * (float)(tile_w - 1));
-  const float ly = __fsub_rn((float)(pix / tile_w), 0.5f * (float)(tile_h - 1));
+  float tox, toy, lx, ly;
+  sgt::tile_frame(t, pix, grid_w, tile_w, tile_h, &tox, &toy, &lx, &ly);
 
   const int start = tile_start[t];
   const int count = tile_count[t];
@@ -111,15 +109,10 @@ __global__ void __launch_bounds__(512) composite_fwd_kernel(
     __syncthreads();
     if (done) continue;
     for (int i = 0; i < nb; ++i) {
-      const float4 g0 = s_g0[i], g1 = s_g1[i];
-      const float dx = __fsub_rn(__fsub_rn(g0.x, tox), lx);
-      const float dy = __fsub_rn(__fsub_rn(g0.y, toy), ly);
-      const float quad = __fadd_rn(__fmul_rn(__fmul_rn(g0.z, dx), dx),
-                                   __fmul_rn(__fmul_rn(g1.x, dy), dy));
-      const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
-                                    __fmul_rn(__fmul_rn(g0.w, dx), dy));
-      const float alpha = fminf(MAX_ALPHA, __fmul_rn(g1.y, expf(fminf(power, 0.0f))));
-      if (!(power <= 0.0f && alpha >= ALPHA_CUTOFF)) continue;
+      const float4 g1 = s_g1[i];
+      const sgt::Alpha a = sgt::alpha_terms(s_g0[i], g1, tox, toy, lx, ly);
+      if (!a.candidate) continue;
+      const float alpha = a.alpha;
       const float test_t = __fmul_rn(T, __fsub_rn(1.0f, alpha));
       if (test_t < T_EPS) {
         done = 1;

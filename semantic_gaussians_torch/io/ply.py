@@ -5,6 +5,8 @@ without its native library). binary_little_endian 1.0, one `vertex` element:
   x y z nx ny nz f_dc_0..2 f_rest_0..(3K-4) opacity scale_0..2 rot_0..3
 with f_rest stored CHANNEL-major. `load_gaussian_ply` returns numpy arrays;
 `core.gaussians.params_from_numpy` carries them onto a device.
+`load_point_cloud` / `save_point_cloud` read and write the scenes'
+initial point clouds (x y z, nx ny nz, uchar red green blue).
 """
 from __future__ import annotations
 
@@ -149,3 +151,40 @@ def load_gaussian_ply(
         opacity_logits=pad(cols["opacity"][:, None], fill=-20.0),
     )
     return arrays, np.arange(cap) < n
+
+
+# --------------------------------------------------------------------------
+# Point clouds (COLMAP points3D.ply / scene init)
+# --------------------------------------------------------------------------
+def load_point_cloud(path):
+    """(points [N,3], colors [N,3] in 0..1, normals [N,3]) from a PLY."""
+    v = read_ply(path)["vertex"]
+    pts = np.stack([v["x"], v["y"], v["z"]], axis=-1).astype(np.float32)
+    names = v.dtype.names
+    if "red" in names:
+        cols = (
+            np.stack([v["red"], v["green"], v["blue"]], axis=-1).astype(np.float32)
+            / 255.0
+        )
+    else:
+        cols = np.full_like(pts, 0.5)
+    if "nx" in names:
+        nrm = np.stack([v["nx"], v["ny"], v["nz"]], axis=-1).astype(np.float32)
+    else:
+        nrm = np.zeros_like(pts)
+    return pts, cols, nrm
+
+
+def save_point_cloud(path, points, colors=None, normals=None):
+    n = len(points)
+    fields = [("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+              ("nx", "<f4"), ("ny", "<f4"), ("nz", "<f4"),
+              ("red", "u1"), ("green", "u1"), ("blue", "u1")]
+    v = np.zeros(n, dtype=np.dtype(fields))
+    v["x"], v["y"], v["z"] = np.asarray(points, np.float32).T
+    if normals is not None:
+        v["nx"], v["ny"], v["nz"] = np.asarray(normals, np.float32).T
+    if colors is not None:
+        c = np.clip(np.asarray(colors) * 255.0, 0, 255).astype(np.uint8)
+        v["red"], v["green"], v["blue"] = c.T
+    write_ply(path, v)

@@ -1,9 +1,14 @@
-"""Tiled front-to-back alpha compositing, forward.
+"""Tiled front-to-back alpha compositing, forward and backward.
 
-Port of the forward of semantic_gaussians_tpu.ops.composite_pallas
-(`composite_pairs`). `composite_forward` launches the CUDA kernel
+Port of semantic_gaussians_tpu.ops.composite_pallas (`composite_pairs` and
+its VJP). `composite_forward` launches the CUDA kernel
 (csrc/composite_fwd.cu) for CUDA tensors and runs the plain torch version,
-`composite_forward_plain`, for CPU tensors.
+`composite_forward_plain`, for CPU tensors; `composite_backward` does the
+same with csrc/composite_bwd.cu and `composite_backward_plain`.
+`CompositeFunction` is the autograd Function around the two: its forward
+is the forward kernel (it saves final_T and n_contrib), its backward the
+backward kernel, whose per-pair rows a caller-given function reduces to
+per-Gaussian gradients (ops.rasterize does so with the segment sum).
 
 Both read the per-Gaussian arrays through the tile-sorted pair ids: a
 geometry table [N, 8] = (mean_x, mean_y, conic a, b, c, opacity, depth, 0)
@@ -35,12 +40,18 @@ GEOM_COLS = 8
 MAX_TILE_PX = 512  # one CUDA thread per pixel of a tile
 PLAIN_BATCH = 32  # pairs per colour contraction in the plain version
 
+GRAD_GEOM_COLS = 6  # dmean_x, dmean_y, dconic a, b, c, dopacity
+
 LAUNCHES = kernels.LaunchCounter("composite_fwd")
+BWD_LAUNCHES = kernels.LaunchCounter("composite_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "sgt_composite_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+}
+_BWD_SIGNATURES = {
+    "sgt_composite_bwd": (_P,) * 9 + (_I,) * 5 + (_P, _P, ctypes.POINTER(_I)),
 }
 
 
@@ -54,6 +65,34 @@ def pack_geometry(means2d, conics, opacities, depths) -> torch.Tensor:
         ],
         dim=-1,
     ).to(torch.float32).contiguous()
+
+
+def _tile_frame(nt: int, grid_w: int, tile_h: int, tile_w: int, dev):
+    """Tile-centred coordinates: each tile's pixel centroid (tox, toy [T])
+    and each pixel's offset from it (lx, ly [PX])."""
+    f32 = torch.float32
+    px = tile_h * tile_w
+    tid = torch.arange(nt, device=dev)
+    tox = ((tid % grid_w) * tile_w).to(f32) + 0.5 * (tile_w - 1)
+    toy = ((tid // grid_w) * tile_h).to(f32) + 0.5 * (tile_h - 1)
+    pid = torch.arange(px, device=dev)
+    lx = (pid % tile_w).to(f32) - 0.5 * (tile_w - 1)
+    ly = (pid // tile_w).to(f32) - 0.5 * (tile_h - 1)
+    return tox, toy, lx, ly
+
+
+def _alpha_terms(r, tox, toy, lx, ly):
+    """(dx, dy, power, g, alpha) [T, PX] of one geometry row per tile
+    (r [T, 8]) at every pixel of its tile, in the kernels' op order."""
+    dx = (r[:, 0] - tox)[:, None] - lx[None, :]
+    dy = (r[:, 1] - toy)[:, None] - ly[None, :]
+    power = (
+        -0.5 * (r[:, 2, None] * dx * dx + r[:, 4, None] * dy * dy)
+        - r[:, 3, None] * dx * dy
+    )
+    g = torch.exp(torch.clamp(power, max=0.0))
+    alpha = torch.clamp(r[:, 5, None] * g, max=MAX_ALPHA)
+    return dx, dy, power, g, alpha
 
 
 def composite_forward_plain(
@@ -74,12 +113,7 @@ def composite_forward_plain(
     nt = tile_start.shape[0]
     px = tile_h * tile_w
     num_ch = colors.shape[1]
-    tid = torch.arange(nt, device=dev)
-    tox = ((tid % grid_w) * tile_w).to(f32) + 0.5 * (tile_w - 1)
-    toy = ((tid // grid_w) * tile_h).to(f32) + 0.5 * (tile_h - 1)
-    pid = torch.arange(px, device=dev)
-    lx = (pid % tile_w).to(f32) - 0.5 * (tile_w - 1)
-    ly = (pid // tile_w).to(f32) - 0.5 * (tile_h - 1)
+    tox, toy, lx, ly = _tile_frame(nt, grid_w, tile_h, tile_w, dev)
 
     T = torch.ones((nt, px), dtype=f32, device=dev)
     D = torch.full((nt, px), MEDIAN_DEPTH_INIT, dtype=f32, device=dev)
@@ -105,15 +139,7 @@ def composite_forward_plain(
         w_buf = torch.zeros((nt, nb, px), dtype=f32, device=dev)
         for i in range(nb):
             r = rows[:, i]
-            dx = (r[:, 0] - tox)[:, None] - lx[None, :]
-            dy = (r[:, 1] - toy)[:, None] - ly[None, :]
-            power = (
-                -0.5 * (r[:, 2, None] * dx * dx + r[:, 4, None] * dy * dy)
-                - r[:, 3, None] * dx * dy
-            )
-            alpha = torch.clamp(
-                r[:, 5, None] * torch.exp(torch.clamp(power, max=0.0)), max=MAX_ALPHA
-            )
+            _, _, power, _, alpha = _alpha_terms(r, tox, toy, lx, ly)
             cand = has[:, i, None] & (power <= 0.0) & (alpha >= ALPHA_CUTOFF) & ~done
             test_t = T * (1.0 - alpha)
             term = cand & (test_t < T_EPS)
@@ -144,10 +170,9 @@ def _check(t, name, dtype, shape, dev):
         raise ValueError(f"{name}: on {t.device}, expected {dev}")
 
 
-def _composite_forward_cuda(
-    geom, colors, pair_gaussian, tile_start, tile_count, bg,
-    grid_w: int, tile_h: int, tile_w: int,
-):
+def _check_inputs(geom, colors, pair_gaussian, tile_start, tile_count, bg,
+                  grid_w: int, tile_h: int, tile_w: int):
+    """Validate what both kernels read; returns (device, T, C, PX)."""
     dev = geom.device
     n = geom.shape[0]
     nt = tile_start.shape[0]
@@ -165,6 +190,16 @@ def _composite_forward_cuda(
     _check(tile_count, "tile_count", torch.int32, (nt,), dev)
     if geom.data_ptr() % 16:
         raise ValueError("geom must be 16-byte aligned (float4 rows)")
+    return dev, nt, num_ch, px
+
+
+def _composite_forward_cuda(
+    geom, colors, pair_gaussian, tile_start, tile_count, bg,
+    grid_w: int, tile_h: int, tile_w: int,
+):
+    dev, nt, num_ch, px = _check_inputs(
+        geom, colors, pair_gaussian, tile_start, tile_count, bg, grid_w, tile_h, tile_w
+    )
     color = torch.empty((nt, num_ch, px), dtype=torch.float32, device=dev)
     depth = torch.empty((nt, px), dtype=torch.float32, device=dev)
     final_t = torch.empty((nt, px), dtype=torch.float32, device=dev)
@@ -204,3 +239,159 @@ def composite_forward(
     if fn is None:
         raise ValueError(f"composite_forward: unsupported device {geom.device}")
     return fn(geom, colors, pair_gaussian, tile_start, tile_count, bg, grid_w, tile_h, tile_w)
+
+
+def composite_backward_plain(
+    geom, colors, pair_gaussian, tile_start, tile_count, bg, g_color, final_t,
+    n_contrib, grid_w: int, tile_h: int, tile_w: int, work: Optional[dict] = None,
+):
+    """Plain torch version of `composite_backward`: every tile walks its
+    range back to front from its largest n_contrib, all tiles at once, with
+    the kernel's arithmetic. Rows outside every tile range stay zero (the
+    kernel leaves them unwritten).
+
+    If `work` is a dict, it receives the (pixel, pair) events these inputs
+    need: "evaluated", the alphas up to each pixel's n_contrib, and
+    "contributed", the events that carry a gradient."""
+    dev = geom.device
+    f32 = torch.float32
+    nt = tile_start.shape[0]
+    num_ch = colors.shape[1]
+    p = pair_gaussian.shape[0]
+    out = torch.zeros((p, GRAD_GEOM_COLS + num_ch), dtype=f32, device=dev)
+    tox, toy, lx, ly = _tile_frame(nt, grid_w, tile_h, tile_w, dev)
+    start = tile_start.long()
+    last = n_contrib.long()
+    max_last = torch.minimum(last.max(dim=1).values, tile_count.long())  # [nt]
+    steps = int(max_last.max())
+    T = final_t.clone()
+    s = torch.zeros_like(T)
+    bgdot = torch.einsum("c,tcp->tp", bg, g_color)
+    tbg = final_t * bgdot
+    zero = torch.zeros((), dtype=f32, device=dev)
+    contributed = torch.zeros((), dtype=torch.int64, device=dev)
+    for j in range(steps - 1, -1, -1):
+        has = j < max_last  # [nt]
+        pos = torch.clamp(start + j, max=max(p - 1, 0))
+        g = torch.where(has, pair_gaussian[pos].long(), 0)
+        r = geom[g]  # [nt, 8]
+        dx, dy, power, gv, alpha = _alpha_terms(r, tox, toy, lx, ly)
+        contrib = (j < last) & (power <= 0.0) & (alpha >= ALPHA_CUTOFF) & has[:, None]
+        om = 1.0 - alpha
+        T = torch.where(contrib, T / om, T)
+        w = torch.where(contrib, alpha * T, zero)
+        q = torch.bmm(colors[g][:, None, :], g_color)[:, 0]  # [nt, px]
+        inv = 1.0 / om
+        dalpha = torch.where(contrib, T * q - s * inv - tbg * inv, zero)
+        s = torch.where(contrib, s + w * q, s)
+        gd = gv * dalpha
+        dldp = r[:, 5, None] * gd
+        t1 = dldp * dx
+        t2 = dldp * dy
+        ex, ey = t1.sum(1), t2.sum(1)
+        ca, cb, cc = r[:, 2], r[:, 3], r[:, 4]
+        geo = torch.stack([
+            -(ca * ex + cb * ey), -(cc * ey + cb * ex), -0.5 * (t1 * dx).sum(1),
+            -(t1 * dy).sum(1), -0.5 * (t2 * dy).sum(1), gd.sum(1),
+        ], dim=1)
+        dcolor = torch.bmm(g_color, w[:, :, None])[:, :, 0]  # [nt, C]
+        out[pos[has]] = torch.cat([geo, dcolor], dim=1)[has]
+        if work is not None:
+            contributed += contrib.sum()
+    if work is not None:
+        work.update(evaluated=int(last.sum()), contributed=int(contributed))
+    return out
+
+
+def _composite_backward_cuda(
+    geom, colors, pair_gaussian, tile_start, tile_count, bg, g_color, final_t,
+    n_contrib, grid_w: int, tile_h: int, tile_w: int,
+):
+    dev, nt, num_ch, px = _check_inputs(
+        geom, colors, pair_gaussian, tile_start, tile_count, bg, grid_w, tile_h, tile_w
+    )
+    _check(g_color, "g_color", torch.float32, (nt, num_ch, px), dev)
+    _check(final_t, "final_t", torch.float32, (nt, px), dev)
+    _check(n_contrib, "n_contrib", torch.int32, (nt, px), dev)
+    out = torch.empty(
+        (pair_gaussian.shape[0], GRAD_GEOM_COLS + num_ch), dtype=torch.float32, device=dev
+    )
+    lib = kernels.load("composite_bwd", _BWD_SIGNATURES)
+    launched = _I(0)  # 2 at C > 8: a geometry pass, then a colour pass
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sgt_composite_bwd(
+            geom.data_ptr(), colors.data_ptr(), pair_gaussian.data_ptr(),
+            tile_start.data_ptr(), tile_count.data_ptr(), bg.data_ptr(),
+            g_color.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
+            num_ch, nt, grid_w, tile_w, tile_h, out.data_ptr(), stream,
+            ctypes.byref(launched),
+        )
+    BWD_LAUNCHES.add(launched.value)
+    kernels.check(lib, err, "sgt_composite_bwd")
+    return out
+
+
+def composite_backward(
+    geom: torch.Tensor,  # [N, 8] float32 from pack_geometry
+    colors: torch.Tensor,  # [N, C] float32
+    pair_gaussian: torch.Tensor,  # [P] int32 tile-sorted gaussian ids
+    tile_start: torch.Tensor,  # [T] int32
+    tile_count: torch.Tensor,  # [T] int32
+    bg: torch.Tensor,  # [C] float32
+    g_color: torch.Tensor,  # [T, C, PX] float32 upstream gradient
+    final_t: torch.Tensor,  # [T, PX] float32 from the forward
+    n_contrib: torch.Tensor,  # [T, PX] int32 from the forward
+    grid_w: int,
+    tile_h: int,
+    tile_w: int,
+) -> torch.Tensor:
+    """Per-pair gradient rows [P, 6 + C] in tile-sorted order: (dmean_x,
+    dmean_y, dconic a, b, c, dopacity, dcolor[C]). Rows of slots in a tile
+    range are written (zero past the tile's last contributor); the others
+    are unspecified. CUDA tensors launch the kernel; CPU tensors take the
+    plain version."""
+    fn = {"cuda": _composite_backward_cuda, "cpu": composite_backward_plain}.get(
+        geom.device.type
+    )
+    if fn is None:
+        raise ValueError(f"composite_backward: unsupported device {geom.device}")
+    return fn(geom, colors, pair_gaussian, tile_start, tile_count, bg, g_color,
+              final_t, n_contrib, grid_w, tile_h, tile_w)
+
+
+class CompositeFunction(torch.autograd.Function):
+    """composite_forward with a gradient. Gradients reach `geom` (columns
+    0-5; depth and padding get none), `colors` and `bg`; the cotangents of
+    depth, final_T and n_contrib are ignored, as in the JAX package.
+
+    `to_gaussians(rows)` maps the backward kernel's per-pair rows [P, 6 + C]
+    to (d_geom [N, 8], d_colors [N, C])."""
+
+    @staticmethod
+    def forward(ctx, geom, colors, bg, pair_gaussian, tile_start, tile_count,
+                grid_w, tile_h, tile_w, to_gaussians):
+        color, depth, final_t, n_contrib = composite_forward(
+            geom, colors, pair_gaussian, tile_start, tile_count, bg, grid_w, tile_h, tile_w
+        )
+        ctx.save_for_backward(geom, colors, bg, pair_gaussian, tile_start, tile_count,
+                              final_t, n_contrib)
+        ctx.frame = (grid_w, tile_h, tile_w)
+        ctx.to_gaussians = to_gaussians
+        ctx.mark_non_differentiable(n_contrib)
+        return color, depth, final_t, n_contrib
+
+    @staticmethod
+    def backward(ctx, g_color, _g_depth, _g_final_t, _g_n_contrib):
+        geom, colors, bg, pair_gaussian, tile_start, tile_count, final_t, n_contrib = (
+            ctx.saved_tensors
+        )
+        g_color = g_color.to(torch.float32).contiguous()
+        rows = composite_backward(
+            geom, colors, pair_gaussian, tile_start, tile_count, bg, g_color, final_t,
+            n_contrib, *ctx.frame,
+        )
+        d_geom, d_colors = ctx.to_gaussians(rows)
+        # bg enters only as out = C + T bg.
+        d_bg = torch.einsum("tp,tcp->c", final_t, g_color)
+        return d_geom, d_colors, d_bg, None, None, None, None, None, None, None

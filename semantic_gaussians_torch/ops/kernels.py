@@ -7,9 +7,9 @@ import, into `csrc/_build/` (listed in .gitignore); a library's file name
 carries a hash of its source and flags, so an edited source rebuilds.
 `build_all` starts one nvcc per source at once. A failed build raises.
 
-Every wrapper that launches a kernel adds one to its `LaunchCounter`, and
-does so nowhere else, so a run can show that its main path went through
-the kernel.
+Every wrapper that launches a kernel adds one to its `LaunchCounter` for
+each launch, and does so nowhere else, so a run can show that its main
+path went through the kernel.
 """
 from __future__ import annotations
 
@@ -26,13 +26,15 @@ from typing import Dict, Iterable, List, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "_build"
 # -fmad=false: no multiply-add contraction, so every product and sum rounds
-# exactly as the plain torch versions' separate ops do (the expand cull
-# decision is compared bit for bit; see csrc/expand.cu).
+# as the plain torch versions' separate ops do. The expand cull decision is
+# compared bit for bit (csrc/expand.cu), and the two composite kernels share
+# alpha.cuh, whose candidate decisions (expf included) must compile
+# identically in both. A kernel that wants a fused multiply-add writes fmaf.
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
 )
-SOURCES = ("expand", "composite_fwd")
+SOURCES = ("expand", "composite_fwd", "composite_bwd", "segsum")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -47,9 +49,9 @@ class LaunchCounter:
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:
@@ -71,9 +73,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    """The library's path, keyed by its source, the shared headers and the
+    flags, so that an edit to any of them rebuilds."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:

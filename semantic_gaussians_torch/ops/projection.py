@@ -1,11 +1,18 @@
 """Per-Gaussian projection ("preprocess"), vectorized torch.
 
 Port of semantic_gaussians_tpu.ops.projection (XLA there, plain torch here),
-forward only: EWA projection with near cull at view z <= 0.2, the 1.3*tan
+differentiated by autograd: EWA projection with near cull at view z <= 0.2, the 1.3*tan
 FOV clamp, +0.3 px low-pass, eigenvalue floor 0.1, radius = ceil(3*sigma),
 per-axis opacity-aware rect extents (`radii_xy`) and the normalized support
 quadratic (`cull_ellipse`) that drives the exact tile-ellipse pair cull.
 The arithmetic keeps the JAX package's evaluation order term for term.
+
+Dead padded and culled Gaussians flow through the same math, so every
+division and square root that reaches the rendered outputs has a safe
+operand (tz, det, p_w and the SH direction norm): `torch.where` alone does
+not stop a NaN gradient, since the unselected branch's inf still gives
+0 * inf. The radii and the cull quadratic feed only integer binning and
+carry no gradient.
 """
 from __future__ import annotations
 
@@ -125,6 +132,8 @@ def project_gaussians(
     cov3d_precomp: Optional[torch.Tensor] = None,  # [N, 6] packed
     scaling_modifier: float = 1.0,
     alive: Optional[torch.Tensor] = None,  # [N] bool
+    mean2d_offset: Optional[torch.Tensor] = None,  # [N, 2] zeros; its gradient
+    # is dL/dmean2D, which densification accumulates
 ) -> ProjectedGaussians:
     """Project all Gaussians to screen space. Culled entries get radius 0
     and opacity 0 (no compaction: downstream stages treat them uniformly)."""
@@ -147,6 +156,8 @@ def project_gaussians(
         ],
         dim=-1,
     )
+    if mean2d_offset is not None:
+        means2d = means2d + mean2d_offset
 
     if cov3d_precomp is not None:
         cov2d = compute_cov2d(

@@ -2,7 +2,9 @@
 
 Port of semantic_gaussians_tpu.renderer: render() and render_chn() with
 scaling_modifier, override_color, override_shape, foreground mask,
-world_rotate, bg color, and N-channel feature rendering. Forward only.
+world_rotate, bg color, and N-channel feature rendering. Differentiable:
+autograd reaches every GaussianParams leaf, the features and
+`mean2d_offset` (whose gradient is the densify statistic dL/dmean2D).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ def render(
     pair_budget: Optional[int] = None,
     backend: str = "tiled",
     tight_cull: bool = True,
+    mean2d_offset: Optional[torch.Tensor] = None,  # [N, 2] zeros (densify stats)
 ) -> dict:
     """Render RGB(+median depth) or N-channel features from one camera, on
     the device that holds `params`.
@@ -80,6 +83,7 @@ def render(
         cov3d_precomp=cov3d_precomp,
         scaling_modifier=scaling_modifier,
         alive=alive,
+        mean2d_offset=mean2d_offset,
     )
     out = rasterize(
         proj, bg, camera.width, camera.height, tile_shape=tile_shape,

@@ -21,6 +21,10 @@ def fov2focal(fov: float, pixels: float) -> float:
     return pixels / (2 * math.tan(fov / 2))
 
 
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2 * math.atan(pixels / (2 * focal))
+
+
 def world_to_view(
     R: np.ndarray,
     t: np.ndarray,

@@ -1,0 +1,44 @@
+"""Learning-rate schedules.
+
+Port of semantic_gaussians_tpu.utils.schedules: the log-linear
+interpolation with optional delay used for the xyz learning rate. The
+returned callable takes an int or a tensor step and returns a float32
+scalar tensor (on the step's device), evaluated in float32 as the JAX
+package does. `cosine_annealing_schedule` is ported with distillation.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def expon_lr_schedule(
+    lr_init: float,
+    lr_final: float,
+    lr_delay_steps: int = 0,
+    lr_delay_mult: float = 1.0,
+    max_steps: int = 1_000_000,
+):
+    def schedule(step) -> torch.Tensor:
+        step = torch.as_tensor(step).to(torch.float32)
+        if lr_delay_steps > 0:
+            delay_rate = lr_delay_mult + (1 - lr_delay_mult) * torch.sin(
+                0.5 * math.pi * torch.clamp(step / lr_delay_steps, 0.0, 1.0)
+            )
+        else:
+            delay_rate = 1.0
+        t = torch.clamp(step / max_steps, 0.0, 1.0)
+        # lr_final == 0 would give log(0) * t = -inf * 0 = NaN at t == 0;
+        # decay toward a tiny positive floor instead.
+        lr_final_safe = max(lr_final, 1e-30)
+        log_init = torch.log(torch.tensor(lr_init, dtype=torch.float32, device=step.device))
+        log_final = torch.log(
+            torch.tensor(lr_final_safe, dtype=torch.float32, device=step.device)
+        )
+        lr = delay_rate * torch.exp(log_init * (1 - t) + log_final * t)
+        # 0 when step < 0 or lr_init == 0 (disabled groups).
+        disabled = (step < 0) | (lr_init == 0.0)
+        return torch.where(disabled, torch.zeros_like(lr), lr)
+
+    return schedule

@@ -3,6 +3,9 @@
 * the port's plain forward composite vs the JAX Pallas kernel
   (`composite_pairs`, interpret mode) on the same projected Gaussians and
   the same binning, at C = 3 and C = 64;
+* the port's plain backward (per-pair gradient rows) vs `jax.vjp` of
+  `composite_pairs`, at C = 3 and C = 64, at atol 1e-4 x each column's
+  largest value;
 * the port's dense oracle vs the JAX `rasterize_dense`;
 * the plain version's work counts (what chip_smoke.py's bound is computed
   from) vs a per-pixel walk.
@@ -11,6 +14,7 @@ atol 1e-5; depth at 1e-4/1e-4; n_contrib exact. The CUDA kernel is held
 against the same plain version by chip_smoke.py.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -22,7 +26,7 @@ from semantic_gaussians_tpu.ops.projection import project_gaussians as jax_proje
 from semantic_gaussians_tpu.ops.rasterize import _pack_pair_cols
 from semantic_gaussians_torch.ops.binning import default_pair_budget
 from semantic_gaussians_torch.ops.composite import (
-    composite_forward, composite_forward_plain, pack_geometry,
+    composite_backward_plain, composite_forward, composite_forward_plain, pack_geometry,
 )
 from semantic_gaussians_torch.ops.composite_ref import rasterize_dense as torch_dense
 from torch_port_common import (
@@ -133,3 +137,46 @@ def test_dense_oracle_matches_jax():
     want = jax_dense(jproj, W, H, jnp.asarray(bg), TILE)
     got = torch_dense(jax_to_torch_proj(jproj), W, H, torch.from_numpy(bg), TILE)
     _assert_outputs(want, got)
+
+
+@pytest.mark.parametrize("num_ch", [3, 64])
+def test_plain_backward_matches_jax_vjp(num_ch):
+    """Per-pair gradient rows of the port's plain backward vs `jax.vjp` of
+    `composite_pairs` (interpret mode) on identical pair buffers, and d_bg.
+    Every row in a tile range is compared, at atol 1e-4 x the column's
+    largest |value| (the two sum the pixels in different orders)."""
+    jproj = _projected(num_ch)
+    tproj = jax_to_torch_proj(jproj)
+    bg = np.linspace(0.1, 0.4, num_ch).astype(np.float32)
+    binning = jax_bin(jproj.means2d, jproj.depths, jproj.radii_xy, TILE, GRID,
+                      default_pair_budget(800), cull_ellipse=jproj.cull_ellipse)
+    cfg = CompositeConfig(tile_h=TILE[0], tile_w=TILE[1], grid_h=GRID[0], grid_w=GRID[1],
+                          num_channels=num_ch, interpret=True)
+    nt, px = GRID[0] * GRID[1], TILE[0] * TILE[1]
+    gcol = np.random.default_rng(7).normal(size=(nt, num_ch, px)).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda pd, b: composite_pairs(cfg, pd, b, binning.tile_start, binning.tile_count)[0],
+        _pack_pair_cols(jproj, binning, cfg), jnp.asarray(bg),
+    )
+    want_pairs, want_bg = vjp(jnp.asarray(gcol))
+    in_pairs = int(np_(binning.tile_count).sum())
+    want = np_(want_pairs)[:6 + num_ch, :in_pairs].T  # [pairs, 6 + C]
+
+    args = (
+        pack_geometry(tproj.means2d, tproj.conics, tproj.opacities, tproj.depths),
+        tproj.colors.contiguous(), torch.tensor(np_(binning.pair_gaussian)),
+        torch.tensor(np_(binning.tile_start)), torch.tensor(np_(binning.tile_count)),
+        torch.from_numpy(bg),
+    )
+    _, _, final_t, n_contrib = composite_forward(*args, GRID[1], TILE[0], TILE[1])
+    work = {}
+    got = composite_backward_plain(*args, torch.from_numpy(gcol), final_t, n_contrib,
+                                   GRID[1], TILE[0], TILE[1], work=work)
+    assert got.shape == (np_(binning.pair_gaussian).shape[0], 6 + num_ch)
+    got = np_(got)[:in_pairs]
+    scale = np.abs(want).max(axis=0) + 1e-12
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=1e-4)
+    assert np.abs(want[:, :6]).max() > 0 and work["contributed"] > 1000
+    assert work["evaluated"] == int(n_contrib.sum())
+    got_bg = torch.einsum("tp,tcp->c", final_t, torch.from_numpy(gcol))
+    np.testing.assert_allclose(np_(got_bg), np_(want_bg), rtol=1e-5, atol=1e-4)

@@ -70,9 +70,26 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         view_server.main([str(yaml)])
 
 
+def test_train_cli_raises_without_cuda(monkeypatch, tmp_path):
+    """The train CLI refuses to start without CUDA unless the CPU was asked
+    for; asked for, it gets as far as the (missing) scene."""
+    from semantic_gaussians_torch.cli import train
+    from semantic_gaussians_torch.config.config import default_config_dir
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = [str(default_config_dir() / "official_train.yaml"), f"scene.scene_path={tmp_path}",
+            f"train.out_dir={tmp_path / 'out'}"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(args)
+    for cpu in (["--device", "cpu"], ["train.device=cpu"]):
+        with pytest.raises(ValueError, match="Could not recognize scene type"):
+            train.main(args + cpu)
+
+
 def test_wrappers_reject_other_devices():
-    from semantic_gaussians_torch.ops.composite import composite_forward
+    from semantic_gaussians_torch.ops.composite import composite_backward, composite_forward
     from semantic_gaussians_torch.ops.expand import expand_pairs
+    from semantic_gaussians_torch.ops.segsum import segsum_contiguous
 
     m = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -80,6 +97,10 @@ def test_wrappers_reject_other_devices():
     g = torch.zeros((4, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         composite_forward(g, g, m, m, m, g[0], 1, 16, 32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        composite_backward(g, g, m, m, m, g[0], g, g, m, 1, 16, 32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        segsum_contiguous(g, m, 4)
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
@@ -97,6 +118,11 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(fake.parent))
     with pytest.raises(RuntimeError, match="nvcc failed for expand.cu"):
         kernels.build_all(["expand"])
+    with pytest.raises(RuntimeError, match="nvcc failed for composite_bwd.cu"):
+        kernels.build_all()
+    assert set(kernels.SOURCES) == {"expand", "composite_fwd", "composite_bwd", "segsum"}
+    # the bit-compared alpha and cull decisions build without FMA contraction
+    assert "-fmad=false" in kernels.NVCC_FLAGS
 
 
 def test_chip_smoke_alone_fails(tmp_path):

@@ -16,6 +16,10 @@ from semantic_gaussians_torch.core.gaussians import params_from_numpy
 from semantic_gaussians_torch.ops.projection import ProjectedGaussians as TorchProj
 from semantic_gaussians_torch.utils.camera import make_camera as torch_camera
 
+# The suite runs in several worker processes at once; one intra-op thread
+# each keeps torch's plain versions from oversubscribing the cores.
+torch.set_num_threads(1)
+
 W, H = 128, 64
 TILE = (16, 32)
 FIELDS = ("means", "sh_dc", "sh_rest", "log_scales", "quats", "opacity_logits")
