@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (semantic_gaussians_torch).
 
-Drives the port's two main paths once at full width on one CUDA card, the
-viewer service and RGB training through the train CLI, and holds each
-hand-written kernel against its plain PyTorch version:
+Drives the port's main paths once at full width on one CUDA card (the
+viewer service, RGB training through the train CLI, 2D -> 3D fusion and
+open-vocabulary evaluation through their CLIs, the segment-sum probe tools)
+and holds each hand-written kernel against its plain PyTorch version:
 
   1. device: the card's name and power limit, torch and CUDA versions; the
-     four kernels are built from csrc/ (one nvcc per source, all at once).
+     five kernel sources are built from csrc/ (one nvcc per source, all at
+     once).
   2. kernels vs plain versions on the card, at the main paths' shapes:
      pair expand (cull on and off, bit for bit); the forward composite at
-     C = 1, 3, 5 and 768 (n_contrib exact; color, depth and final_T at
+     C = 1, 3, 5, 21 and 768 (n_contrib exact; color, depth and final_T at
      rtol 1e-5, atol 1e-6); the composite backward at C = 3 and 768 with a
      random upstream gradient (rows at rtol 1e-4, atol 1e-5 x column max)
      and the segment sum on its rows at D = 9 and 774 (rtol 1e-5, atol
-     1e-6 x column max), each of the two bit-identical over two runs.
+     1e-6 x column max), each of the two bit-identical over two runs; the
+     segment-sum probe in both modes at the probe tools' full shapes (rtol
+     1e-5, atol 1e-5 x column max: see check_probe_kernels), bit-identical
+     over two runs.
   3. viewer path: a 100k-Gaussian scene (bench.py's scene law) with 768-dim
      fused features, served over HTTP at 640x480: RGB, Depth, Semantic and
      Relevancy renders, an edit, a reset, then render_chn at C = 768. All
@@ -33,6 +38,21 @@ hand-written kernel against its plain PyTorch version:
   8. training times: one train step and its parts, the device-busy share,
      and the backward kernels' times against their plain versions, bounds
      and (for the segment sum) index_add_.
+  9. fusion path: the 100k scene with near-opaque splats as the trained
+     model, the training scene's 8 ring views, one 648x484x768 float16
+     feature map per view rendered from a per-Gaussian class palette (20
+     classes, each carrying its label's text feature) and written as .npy;
+     `python -m semantic_gaussians_torch.cli.fusion` (in process) fuses
+     them with depth=render. One expand and one forward-composite launch
+     per view, visited share above VISITED_FLOOR, mean cosine of fused
+     against palette features >= 0.9, the .pt reloads.
+ 10. eval path: ground-truth label images rendered from the palette's
+     classes; `python -m semantic_gaussians_torch.cli.eval_segmentation`
+     (in process) in mode 2d with pred_on_3d true (C = 21) and false
+     (C = 768): mIoU >= 0.9 each; mode labelmap on its own ground truth:
+     mIoU = 1.
+ 11. probe tools: `tools.exp_panel` and `tools.exp_panel2` at full size.
+ 12. fusion, eval and probe times.
 Every number is stamped with the card's name and power limit.
 
 Prints one JSON line of per-kernel numbers, the card's name and power limit,
@@ -56,6 +76,12 @@ N_GAUSSIANS = 100_000
 WIDTH, HEIGHT = 640, 480
 FEAT_DIM = 768
 TRAIN_VIEWS, TRAIN_RADIUS, TRAIN_ITERS = 8, 6.0, 100
+FUSE_W, FUSE_H = 648, 484  # the fusion configs' feature-map and eval size
+# The fusion / eval scene: the 100k target with opacity logits raised by this
+# much (near-opaque, as a trained scene's surface splats are, so that the
+# median depth reads a surface), and the occlusion tolerance of its fusion.
+OPACITY_BOOST, VISIBILITY = 4.0, 0.1
+VISITED_FLOOR = 0.25  # measured 0.288 on this scene (28,756 of 100,000)
 PROMPTS = "wall,floor,chair,table"
 MODES = ("RGB", "Depth", "Semantic", "Relevancy")
 # One identity pose, vertical fov 1.1 rad: the bench camera (bench.py).
@@ -282,6 +308,9 @@ def main():
         1: torch.rand((n, 1), generator=torch.Generator(dev).manual_seed(SEED), device=dev),
         3: proj.colors.contiguous(),
         5: torch.nn.functional.one_hot(labels, 5).to(torch.float32) * alive[:, None],
+        # K + 1 = 21 one-hot classes, as evaluation's pred_on_3d renders them
+        21: torch.nn.functional.one_hot(torch.argmax(feats[:, :21], dim=-1), 21).to(
+            torch.float32) * alive[:, None],
         FEAT_DIM: (feats * alive[:, None]).contiguous(),
     }
     comp_cases = {}
@@ -311,6 +340,7 @@ def main():
 
     # ---------------------------------------------------------------- 2b
     bwd, seg = check_backward_kernels(comp_cases, binning, grid, th, tw)
+    probe = check_probe_kernels(dev)
 
     # ---------------------------------------------------------------- 3
     from http.server import ThreadingHTTPServer
@@ -339,12 +369,23 @@ def main():
 
         # ------------------------------------------------------------ 8
         step_times = time_training(trained["scene"], dev, card)
+
+        # ------------------------------------------------------------ 9, 10
+        fused = fuse_through_cli(Path(train_tmp), trained["scene"], arrays, dev, card)
+        evaluated = eval_through_cli(Path(train_tmp), trained["scene"], fused, dev, card)
+    del fused["state"]
+
+    # ---------------------------------------------------------------- 11
+    tools = run_probe_tools()
+
     kt = time_backward_kernels(bwd, seg)
+    pt = time_probe_kernels(probe)
     print(json.dumps({"card": card, "training": {
         k: v for k, v in trained.items() if k != "scene"}, "train_step": step_times,
         "composite_bwd_by_channels": {str(c): {k: v for k, v in d.items()}
                                       for c, d in kt["composite_bwd"].items()},
-        "segsum_by_width": {str(d): v for d, v in kt["segsum"].items()}}, default=str))
+        "segsum_by_width": {str(d): v for d, v in kt["segsum"].items()},
+        "segsum_probe": pt}, default=str))
     cb, sg = kt["composite_bwd"], kt["segsum"]
     kernel_lines += [
         kernel_entry("composite_bwd", "semantic_gaussians_torch/csrc/composite_bwd.cu",
@@ -366,14 +407,33 @@ def main():
                                             max_abs_err=v["max_abs_err"],
                                             bound_ms=max(v["bound"]) * 1e3)
                                for d, v in sg.items()}),
+        # The two probe kernels of the JAX tools are one function with one
+        # switch, and so is the port's: one entry per mode, each naming the
+        # tool that times that mode first.
+        kernel_entry("segsum_probe_fold", "semantic_gaussians_torch/csrc/segsum_probe.cu",
+                     "tools/exp_panel2.py:66", pt["fold"], pt["fold"]["max_abs_err"], card,
+                     also_replaces="tools/exp_panel.py:57",
+                     shape="d=16, p=3,670,016, rows=1,000,000; library is index_add_ on "
+                           "the probe's target rows"),
+        kernel_entry("segsum_probe_window", "semantic_gaussians_torch/csrc/segsum_probe.cu",
+                     "tools/exp_panel.py:57", pt["window"], pt["window"]["max_abs_err"], card,
+                     also_replaces="tools/exp_panel2.py:66",
+                     shape="d=16, p=3,670,016, rows=1,000,000; library is index_add_ on "
+                           "the probe's target rows"),
     ]
     # Launches, counted from 0 over each main path's run: the viewer's
-    # requests (phase 3) and the train CLI (phase 7). `launches` is their sum.
+    # requests (phase 3), the train CLI (7), the fusion CLI (9), the eval
+    # CLI's three runs (10) and the two probe tools (11). `launches` is
+    # their sum.
+    paths = {"viewer": viewer_launches, "train": trained["launches"],
+             "fusion": fused["launches"], "eval": evaluated["launches"],
+             "tools": tools["launches"]}
     for e in kernel_lines:
-        by_path = {"viewer": viewer_launches[e["name"]],
-                   "train": trained["launches"][e["name"]]}
+        by_path = {name: counts[e["name"]] for name, counts in paths.items()}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
+        if e["launches"] <= 0:
+            fail(f"kernel {e['name']} was launched on no main path")
     print(json.dumps({"kernels": kernel_lines}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -381,9 +441,35 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def all_counters():
+    """Every kernel's launch counter, in the order of the kernels line."""
+    from semantic_gaussians_torch.ops import composite, expand, segsum, segsum_probe
+
+    return (expand.LAUNCHES, composite.LAUNCHES, composite.BWD_LAUNCHES, segsum.LAUNCHES,
+            segsum_probe.LAUNCHES["fold"], segsum_probe.LAUNCHES["window"])
+
+
+def count_launches(path, run, must_launch):
+    """Run one main path with every launch count set to 0 just before and
+    read just after; fail if a kernel of the path was launched no time.
+    Returns (what run() returned, {kernel: launches})."""
+    import torch
+
+    counters = all_counters()
+    for c in counters:
+        c.reset()
+    out = run()
+    torch.cuda.synchronize()
+    launches = {c.name: c.count for c in counters}
+    for name in must_launch:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the {path} path")
+    return out, launches
+
+
 def serve_and_time(base, card, state, cam, arrays, budget, binning, expand_in, comp_cases):
     """Phases 3-5 against the viewer server running at `base`; returns the
-    four kernels' launch counts over the viewer path's run and the forward
+    kernels' launch counts over the viewer path's run and the forward
     kernels' entries of the kernels line. `expand_in` and `comp_cases` are
     the kernels' main-path inputs from phase 2."""
     import numpy as np
@@ -411,7 +497,7 @@ def serve_and_time(base, card, state, cam, arrays, budget, binning, expand_in, c
         with urllib.request.urlopen(req, timeout=300) as r:
             return json.loads(r.read())
 
-    counters = (expand.LAUNCHES, composite.LAUNCHES, composite.BWD_LAUNCHES, segsum.LAUNCHES)
+    counters = all_counters()
     for c in counters:
         c.reset()
     images = {m: get(m) for m in MODES}
@@ -750,7 +836,7 @@ def train_through_cli(tmpdir, arrays, dev):
     print(f"training scene written in {time.perf_counter() - t0:.1f} s: {TRAIN_VIEWS} views "
           f"at {WIDTH}x{HEIGHT}, {len(arrays['means'])} points")
     out_dir = tmpdir / "train_out"
-    counters = (expand.LAUNCHES, composite.LAUNCHES, composite.BWD_LAUNCHES, segsum.LAUNCHES)
+    counters = all_counters()
     for c in counters:
         c.reset()
     t0 = time.perf_counter()
@@ -766,8 +852,8 @@ def train_through_cli(tmpdir, arrays, dev):
     launches = {c.name: c.count for c in counters}
     print(f"train CLI: {TRAIN_ITERS} steps in {wall:.1f} s (scene load, init, tests and PLY "
           f"save included); launches {launches}")
-    for name, cnt in launches.items():
-        if cnt <= 0:
+    for name in ("expand", "composite_fwd", "composite_bwd", "segsum"):
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the training path")
     log = summary["logs"][0]
     if not torch.isfinite(log["loss"]).all():
@@ -922,6 +1008,319 @@ def time_backward_kernels(bwd, seg):
             bound=(sbytes / PEAK_BYTES, live * d / PEAK_F32),
         )
     return out
+
+
+def check_probe_kernels(dev):
+    """Kernels 6 and 7 (the segment-sum probe, fold and window) against
+    their plain version at the probe tools' full shapes (d = 16,
+    p = 3,670,016, owners over 1,000,000 rows; exp_panel's data law), each
+    run twice for the same bits.
+
+    Tolerance: rtol 1e-5, atol 1e-5 x the panel's largest |value|. A fold
+    entry sums ~12,600 N(0, 1) values in float32; the plain version adds
+    them with float atomics in an order that changes run to run, and
+    differs from a float64 sum by ~5e-6 of the largest entry, the kernel
+    (fixed order) by ~4e-7. Both errors are printed against the float64
+    sum. Returns the timing inputs."""
+    import numpy as np
+    import torch
+
+    from semantic_gaussians_torch.ops import segsum_probe as sp
+    from semantic_gaussians_torch.tools import probe_common as pc
+
+    rng = np.random.default_rng(0)
+    cot = pc.make_cot(rng, pc.P_FULL, dev)
+    owners = torch.from_numpy(pc.make_owners(rng, pc.ROWS_FULL, pc.P_FULL)).to(dev)
+    out = {"cot": cot, "owners": owners, "modes": {}}
+    for mode in sp.MODES:
+        got = sp.segsum_probe(cot, owners, mode)
+        again = sp.segsum_probe(cot, owners, mode)
+        want = sp.segsum_probe_plain(cot, owners, mode)
+        exact = sp.segsum_probe_plain(cot, owners, mode, acc_dtype=torch.float64)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"segsum_probe {mode}: two runs differ")
+        if got.shape != (sp.PANEL, pc.D) or not torch.isfinite(got).all():
+            fail(f"segsum_probe {mode}: bad shape or non-finite values")
+        top = float(want.abs().max())
+        try:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * top)
+        except AssertionError as e:
+            fail(f"segsum_probe {mode} vs plain: {e}")
+        err = float((got - want).abs().max())
+        err64 = float((got - exact).abs().max())
+        plain64 = float((want - exact).abs().max())
+        rows = int((got != 0).any(dim=1).sum())
+        out["modes"][mode] = dict(max_abs_err=err, err_vs_f64=err64, plain_err_vs_f64=plain64)
+        print(f"segsum_probe {mode}: within rtol 1e-5 / atol 1e-5 x max |{top:.4g}|, "
+              f"bit-identical over two runs, max |kernel - plain| = {err:.3g}; against a "
+              f"float64 sum: kernel {err64:.3g}, plain {plain64:.3g}; {rows} panel rows "
+              f"written, sum {float(got.sum()):.6g}")
+    return out
+
+
+def time_probe_kernels(probe):
+    """CUDA-event times of the probe kernels, their plain version and
+    index_add_ on the probe's precomputed target rows (the one PyTorch call
+    that computes the same fold), with the byte bound: the stream and the
+    owners read once, the panel written once; one add per element."""
+    import torch
+
+    from semantic_gaussians_torch.ops import segsum_probe as sp
+
+    cot, owners = probe["cot"], probe["owners"]
+    p, d = cot.shape
+    pbytes = p * d * 4 + p * 4 + sp.PANEL * d * 4
+    out = {}
+    for mode, case in probe["modes"].items():
+        base, off = sp.probe_scalars(owners, mode)
+        col = owners - base.repeat_interleave(sp.CHUNK)
+        rows = (off.repeat_interleave(sp.CHUNK) + col).long()
+        if bool(((col < 0) | (col >= sp.WIN)).any()):
+            fail("probe data: a column falls outside its window")
+
+        def library():
+            torch.zeros((sp.PANEL, d), device=cot.device).index_add_(0, rows, cot)
+
+        out[mode] = dict(
+            case,
+            ms=cuda_ms(lambda: sp.segsum_probe(cot, owners, mode), 10),
+            plain_ms=cuda_ms(lambda: sp.segsum_probe_plain(cot, owners, mode), 3),
+            library_ms=cuda_ms(library, 10),
+            bound=(pbytes / PEAK_BYTES, p * d / PEAK_F32),
+        )
+    return out
+
+
+def class_cones(means):
+    """20 classes for the fusion / eval scene: 5 x 4 cones seen from the
+    first ring camera (at (0, 0.9, -2)), equal-count quantile bins of the
+    Gaussians' projected x and y. Every class covers a large patch of that
+    camera's image, the one evaluation looks at."""
+    import numpy as np
+
+    def bins(x, k):
+        return np.digitize(x, np.quantile(x, np.linspace(0, 1, k + 1)[1:-1]))
+
+    z = means[:, 2] + 2.0
+    return bins(means[:, 0] / z, 5) * 4 + bins((means[:, 1] - 0.15 * TRAIN_RADIUS) / z, 4)
+
+
+def fuse_through_cli(tmpdir, scene, arrays, dev, card):
+    """The fusion main path: the fusion CLI, in process, on the training
+    scene's 8 ring views with one precomputed 648x484x768 float16 feature
+    map per view, every launch count set to 0 just before and read just
+    after. The maps are rendered from a class palette, so the right fused
+    feature of every Gaussian is known. Returns what the eval phase needs."""
+    import numpy as np
+    import torch
+
+    from semantic_gaussians_torch.cli import fusion as fusion_cli
+    from semantic_gaussians_torch.config.config import default_config_dir, load_config
+    from semantic_gaussians_torch.core.gaussians import params_from_numpy
+    from semantic_gaussians_torch.data.scannet_constants import COCOMAP_CLASS_LABELS
+    from semantic_gaussians_torch.io.ply import save_gaussian_ply
+    from semantic_gaussians_torch.io.scene import load_scene, realize_camera
+    from semantic_gaussians_torch.models.predictors import RandomFeatureProvider, make_predictor
+    from semantic_gaussians_torch.pipelines.eval_segmentation import text_feature_matrix
+    from semantic_gaussians_torch.pipelines.fusion import (
+        FusionConfig, _intrinsic_for, fuse_view, load_fused_features, upload_map, view_depth,
+    )
+    from semantic_gaussians_torch.renderer import render_chn
+
+    model_dir, feature_dir, out_dir = tmpdir / "target_model", tmpdir / "feats", tmpdir / "fused"
+    opaque = dict(arrays, opacity_logits=arrays["opacity_logits"] + np.float32(OPACITY_BOOST))
+    save_gaussian_ply(model_dir / "point_cloud" / "iteration_1" / "point_cloud.ply",
+                      params_from_numpy(opaque, "cpu"))
+    overrides = [
+        f"scene.scene_path={scene}", f"model.model_dir={model_dir}",
+        f"fusion.out_dir={out_dir}", "fusion.model_2d=precomputed",
+        f"fusion.feature_dir={feature_dir}", f"fusion.embedding_dim={FEAT_DIM}",
+        "fusion.depth=render", "fusion.every_k_views=1", f"fusion.img_dim=[{FUSE_W},{FUSE_H}]",
+        "fusion.feat_dtype=float16", f"fusion.visibility_threshold={VISIBILITY}",
+    ]
+    yaml = default_config_dir() / "fusion_scannet.yaml"
+    params, alive = fusion_cli.load_model(load_config(yaml, overrides), dev)
+    n = len(arrays["means"])
+    labels = COCOMAP_CLASS_LABELS
+    text = text_feature_matrix(RandomFeatureProvider(FEAT_DIM), labels)  # row 0 = 'other'
+    cls = torch.zeros(params.capacity, dtype=torch.long, device=dev)
+    cls[:n] = torch.from_numpy(class_cones(arrays["means"])).to(dev)
+    palette = (torch.from_numpy(text).to(dev)[cls + 1] * alive[:, None]).contiguous()
+
+    infos = load_scene(scene, eval_split=False).train_cameras
+    cams = [realize_camera(ci, with_image=False).resized(FUSE_W, FUSE_H).to(dev) for ci in infos]
+    feature_dir.mkdir()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for ci, cam in zip(infos, cams):
+            fmap = render_chn(cam, params, palette, alive=alive)["render"]
+            np.save(feature_dir / f"{ci.image_name}.npy", fmap.to(torch.float16).cpu().numpy())
+    del fmap
+    print(f"fusion scene: {len(cams)} feature maps of {FUSE_W}x{FUSE_H}x{FEAT_DIM} float16 "
+          f"rendered and written in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    summary, launches = count_launches(
+        "fusion", lambda: fusion_cli.main([str(yaml), *overrides]), ("expand", "composite_fwd"))
+    wall = time.perf_counter() - t0
+    print(f"fusion CLI: {summary['views']} views fused in {wall:.1f} s (scene and model load "
+          f"and the .pt save included); launches {launches}")
+    for name in ("expand", "composite_fwd"):  # one depth render per view
+        if launches[name] != len(cams):
+            fail(f"fusion launched {name} {launches[name]} times for {len(cams)} views")
+    feats, visited = load_fused_features(summary["out_path"], capacity=params.capacity,
+                                         device=dev)
+    if int(visited.sum()) != summary["visited"] or bool(visited[~alive].any()):
+        fail("the fused .pt does not reload to the mask the CLI reported")
+    share = summary["visited"] / n
+    if share < VISITED_FLOOR:
+        fail(f"visited share {share:.3f} below the floor {VISITED_FLOOR}")
+    cos = torch.nn.functional.cosine_similarity(feats[visited], palette[visited], dim=-1)
+    if not torch.isfinite(feats).all() or float(cos.mean()) < 0.9:
+        fail(f"fused features: mean cosine against the palette {float(cos.mean()):.4f} < 0.9")
+    print(f"fused {summary['visited']} of {n} Gaussians (share {share:.3f}); mean cosine "
+          f"against the palette {float(cos.mean()):.4f}, least {float(cos.min()):.4f}")
+
+    # Where one fused view's time goes: view 0's four steps as fuse_scene
+    # takes them, each ended by a synchronize; median of 3 after a warm-up.
+    provider = make_predictor("precomputed", {
+        "feature_dir": str(feature_dir), "embedding_dim": FEAT_DIM, "feat_dtype": "float16"})
+    fcfg = FusionConfig(img_dim=(FUSE_W, FUSE_H), every_k_views=1, depth="render",
+                        visibility_threshold=VISIBILITY, feat_dtype="float16")
+    intrinsic = torch.from_numpy(_intrinsic_for(cams[0], fcfg.img_dim)).to(dev)
+    sem = torch.zeros((params.capacity, FEAT_DIM), device=dev)
+    counts = torch.zeros(params.capacity, device=dev)
+    staging, runs = [], []
+    for _ in range(4):
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        with torch.no_grad():
+            fmap = np.asarray(provider.extract_image_feature(infos[0].image_path, fcfg.img_dim),
+                              np.dtype(fcfg.feat_dtype))
+            mark()
+            fmap = upload_map(fmap, dev, staging)
+            mark()
+            depth = view_depth("render", cams[0], params, alive, intrinsic, fcfg)
+            mark()
+            fuse_view(sem, counts, params.means, alive, cams[0].world_view, intrinsic, fmap,
+                      depth, fcfg.img_dim, fcfg.visibility_threshold, fcfg.cut_boundary)
+            mark()
+        runs.append([(b - a) * 1e3 for a, b in zip(marks, marks[1:])])
+    del fmap, depth, sem, counts, staging
+    parts = {k: statistics.median(r[i] for r in runs[1:])
+             for i, k in enumerate(("map_load", "map_copy", "depth", "accumulate"))}
+    times = dict(fuse_view_ms=sum(parts.values()), parts_ms=parts,
+                 cli_wall_s=wall, views=len(cams))
+    print(json.dumps({"card": card, "fusion": dict(
+        times, visited=summary["visited"], visited_share=share,
+        cosine_mean=float(cos.mean()), launches=launches)}))
+    return dict(launches=launches, state=(params, alive, cls, text, infos, cams),
+                fusion_out=out_dir, model_dir=model_dir, times=times)
+
+
+def eval_through_cli(tmpdir, scene, fused, dev, card):
+    """The eval main path: the eval CLI, in process, in mode 2d with
+    pred_on_3d true and false, then in mode labelmap on its own ground
+    truth; the launch counts run over all three."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from semantic_gaussians_torch.cli import eval_segmentation as eval_cli
+    from semantic_gaussians_torch.config.config import default_config_dir
+    from semantic_gaussians_torch.data.scannet_constants import COCOMAP_CLASS_LABELS
+    from semantic_gaussians_torch.ops import composite
+    from semantic_gaussians_torch.pipelines.eval_segmentation import (
+        eval_views, predict_label_image,
+    )
+    from semantic_gaussians_torch.pipelines.fusion import load_fused_features
+
+    params, alive, cls, text, infos, cams = fused["state"]
+    k = len(COCOMAP_CLASS_LABELS)
+    eye = torch.eye(k + 1, device=dev)
+    onehot = eye[cls + 1] * alive[:, None]
+    label_dir = tmpdir / "labels"
+    label_dir.mkdir()
+    gts = {}
+    for ci, cam in list(zip(infos, cams))[::10]:  # the views the CLI evaluates
+        gt = predict_label_image(cam, params, alive, onehot, eye, pred_on_3d=True)
+        gts[ci.image_name] = gt.cpu().numpy().astype(np.uint8)
+        Image.fromarray(gts[ci.image_name]).save(label_dir / f"{ci.image_name}.png")
+    unlabeled = float(np.mean([(g == k).mean() for g in gts.values()]))
+    print(f"eval scene: {len(gts)} ground-truth label image(s) of {FUSE_W}x{FUSE_H}, "
+          f"{unlabeled:.3f} of the pixels unlabeled")
+    base = [
+        str(default_config_dir() / "eval.yaml"), f"scene.scene_path={scene}",
+        f"model.model_dir={fused['model_dir']}", f"fusion.out_dir={fused['fusion_out']}",
+        f"fusion.embedding_dim={FEAT_DIM}", f"eval.width={FUSE_W}", f"eval.height={FUSE_H}",
+        f"eval.label_dir={label_dir}", f"eval.log_file={tmpdir / 'eval_result.log'}",
+    ]
+
+    def run_all():
+        return {
+            "2d_onehot": eval_cli.main(base + ["eval.eval_mode=2d", "eval.pred_on_3d=true"]),
+            "2d_features": eval_cli.main(base + ["eval.eval_mode=2d", "eval.pred_on_3d=false"]),
+            "labelmap": eval_cli.main(base + ["eval.eval_mode=labelmap"]),
+        }
+
+    results, launches = count_launches("eval", run_all, ("expand", "composite_fwd"))
+    widths = composite.LAUNCHES.by_key
+    print(f"eval CLI: launches {launches}; forward composite by channel width {widths}")
+    for c in (k + 1, FEAT_DIM):
+        if widths.get(c, 0) != len(gts):
+            fail(f"eval launched the forward composite at C={c} {widths.get(c, 0)} times")
+    miou = {name: r[0] for name, r in results.items()}
+    for name in ("2d_onehot", "2d_features"):
+        if not miou[name] >= 0.9:
+            fail(f"eval {name}: mIoU {miou[name]:.4f} < 0.9")
+    if miou["labelmap"] != 1.0:
+        fail(f"eval labelmap on its own ground truth: mIoU {miou['labelmap']}")
+    pixels = len(gts) * FUSE_W * FUSE_H
+    for name, (_, _, conf) in results.items():
+        if int(conf.sum()) != round(pixels * (1 - unlabeled)):
+            fail(f"eval {name}: the confusion counts {int(conf.sum())} labeled pixels")
+
+    # One evaluated view per path (host clock ending in the confusion's copy).
+    feats, _ = load_fused_features(
+        sorted((fused["fusion_out"] / scene.name).glob("*.pt"))[0], capacity=params.capacity,
+        device=dev)
+    gt0 = [next(iter(gts.values()))]
+    view_ms = {
+        name: host_ms(lambda p3=p3: eval_views(cams[:1], gt0, params, alive, feats, text,
+                                               COCOMAP_CLASS_LABELS, pred_on_3d=p3), 5)
+        for name, p3 in (("2d_onehot", True), ("2d_features", False))
+    }
+    print(json.dumps({"card": card, "eval": dict(
+        miou=miou, macc={n: r[1] for n, r in results.items()}, eval_view_ms=view_ms,
+        launches=launches, composite_fwd_by_channels={str(c): v for c, v in widths.items()})}))
+    return dict(launches=launches, miou=miou, view_ms=view_ms)
+
+
+def run_probe_tools():
+    """The tools main path: both probe tools' `main` at full size, the
+    launch counts run over both. Their tables are printed as they run."""
+    from semantic_gaussians_torch.tools import exp_panel, exp_panel2
+
+    def run_both():
+        return {"exp_panel": exp_panel.main([]), "exp_panel2": exp_panel2.main([])}
+
+    tables, launches = count_launches(
+        "tools", run_both, ("segsum", "segsum_probe_fold", "segsum_probe_window"))
+    for tool, lines in tables.items():
+        bad = [l["label"] for l in lines if "ms" in l and not l["ms"] > 0]
+        if bad or not lines:
+            fail(f"{tool}: no time for {bad}")
+    sums = {l["label"]: l["value"] for l in tables["exp_panel2"] if "value" in l}
+    if abs(sums["A sum"] - sums["B sum"]) > 1e-4 * max(1.0, abs(sums["A sum"])) + 0.5:
+        fail(f"exp_panel2: fold and window fold the same terms but sum to {sums}")
+    print(f"probe tools: launches {launches}")
+    print(json.dumps({"tools": tables}))
+    return dict(launches=launches, tables=tables)
 
 
 if __name__ == "__main__":

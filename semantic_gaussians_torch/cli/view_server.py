@@ -5,6 +5,7 @@
               &quat=w,x,y,z&pos=x,y,z    client camera pose (wxyz), OR
               &pose=16 floats            full row-major camera-to-world
               &w=&h=&fov=                resolution / fov (radians)
+              &t=  or  &play=1&fps=      dynamic scenes: timestep, or replay
               &prompts=a,b,c             Semantic/Relevancy prompts
        -> PNG (encoded with zlib + struct)
   POST /edit   body: mode=Remove|Color|Size|Move&edit=a,b&preserve=c,d
@@ -16,8 +17,9 @@ Usage:
         model.model_dir=... [fusion.out_dir=...] [--device cpu]
 
 The server renders on CUDA (`render.device`, default cuda) and raises if
-CUDA is absent unless the CPU was asked for. Dynamic-scene replay is not
-ported yet.
+CUDA is absent unless the CPU was asked for. With `model.dynamic` it loads
+`<model_dir>/params.npz` and replays its timesteps (`t=`, or `play=1` for
+wall-clock replay at `fps`).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import pathlib
 import struct
 import sys
 import threading
+import time
 import urllib.parse
 import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -37,6 +40,7 @@ import torch
 
 from ..config.config import load_config, pretty
 from ..core.gaussians import params_from_numpy
+from ..io.dynamic_npz import load_dynamic_npz
 from ..io.ply import load_gaussian_ply
 from ..models.predictors import RandomFeatureProvider
 from ..pipelines.fusion import load_fused_features
@@ -125,16 +129,20 @@ class ViewerState:
         self.backend = render_cfg.get("backend", "tiled")
         self.cfg = cfg
         self._lock = threading.Lock()
+        self._start_time = time.time()
+        self.dynamic = None
         model_dir = pathlib.Path(cfg.model.model_dir)
         if cfg.model.get("dynamic"):
-            raise NotImplementedError("dynamic-scene replay is not ported yet")
-        it = cfg.model.get("load_iteration", -1)
-        if it == -1:
-            it = latest_iteration(model_dir / "point_cloud")
-        ply = model_dir / "point_cloud" / f"iteration_{it}" / "point_cloud.ply"
-        arrays, alive = load_gaussian_ply(ply)
-        self.params = params_from_numpy(arrays, self.device)
-        self.alive = torch.from_numpy(alive).to(self.device)
+            self.dynamic = load_dynamic_npz(model_dir / "params.npz")
+            self.params, self.alive = self.dynamic.params_at(0, device=self.device)
+        else:
+            it = cfg.model.get("load_iteration", -1)
+            if it == -1:
+                it = latest_iteration(model_dir / "point_cloud")
+            ply = model_dir / "point_cloud" / f"iteration_{it}" / "point_cloud.ply"
+            arrays, alive = load_gaussian_ply(ply)
+            self.params = params_from_numpy(arrays, self.device)
+            self.alive = torch.from_numpy(alive).to(self.device)
         self.original_params = self.params
         fusion = cfg.get("fusion") or {}
         self.text_encoder = RandomFeatureProvider(int(fusion.get("embedding_dim", 768)))
@@ -150,6 +158,17 @@ class ViewerState:
         cam = camera_from_query(q)
         with self._lock:
             params = self.params
+        if self.dynamic is not None:
+            # Wall-clock replay: with play=1 the timestep advances by elapsed
+            # time x fps; an explicit t overrides. As in the JAX server, a
+            # replayed timestep shows the recorded scene, without edits.
+            steps = self.dynamic.num_timesteps
+            if q.get("play", ["0"])[0] not in ("0", ""):
+                fps = float(q.get("fps", [10.0])[0])
+                t = int((time.time() - self._start_time) * fps % steps)
+            else:
+                t = int(q.get("t", [0])[0]) % steps
+            params, _ = self.dynamic.params_at(t, device=self.device)
         return render_view(
             cam, params, self.alive, mode=q.get("mode", ["RGB"])[0],
             gauss_feats=self.gauss_feats, text_encoder=self.text_encoder,

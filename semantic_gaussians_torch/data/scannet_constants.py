@@ -1,9 +1,28 @@
-"""ScanNet visualization palette (public dataset constant; first entry =
-unlabeled/black). Port of the COLORMAP in
-semantic_gaussians_tpu.data.scannet_constants."""
+"""ScanNet dataset metadata (public dataset constants).
+
+Port of semantic_gaussians_tpu.data.scannet_constants: the class label sets
+of ScanNet-20 and the COCO-Map subset, the visualization palette (first
+entry = unlabeled/black), the raw-id -> train-id label mapping read from a
+scannetv2-labels TSV, and the label-image helpers built on them.
+"""
 from __future__ import annotations
 
+import csv
+from typing import Dict
+
 import numpy as np
+
+SCANNET20_CLASS_LABELS = (
+    "wall", "floor", "cabinet", "bed", "chair", "sofa", "table", "door",
+    "window", "bookshelf", "picture", "counter", "desk", "curtain",
+    "refridgerator", "shower curtain", "toilet", "sink", "bathtub",
+)
+
+COCOMAP_CLASS_LABELS = (
+    "wall", "floor", "cabinet", "bed", "chair", "sofa", "table", "door",
+    "window", "shelves", "counter", "curtain", "ceiling", "refridgerator",
+    "television", "person", "toilet", "sink", "lamp", "bag",
+)
 
 COLORMAP = np.array(
     [
@@ -23,3 +42,40 @@ COLORMAP = np.array(
     ],
     dtype=np.float32,
 )
+
+
+def read_label_mapping(
+    tsv_path, label_from: str = "id", label_to: str = "scannetid"
+) -> Dict[int, int]:
+    """raw-id -> train-id mapping from a scannetv2-labels TSV; rows whose
+    ids do not parse are skipped."""
+    mapping = {}
+    with open(tsv_path) as f:
+        for row in csv.DictReader(f, delimiter="\t"):
+            try:
+                mapping[int(row[label_from])] = int(row[label_to])
+            except (ValueError, KeyError):
+                continue
+    return mapping
+
+
+def map_label_image(
+    label_img: np.ndarray, mapping: Dict[int, int], num_classes: int
+) -> np.ndarray:
+    """Apply a raw->train mapping; unmapped ids, and raw ids outside the
+    TSV's range, become num_classes (unlabeled)."""
+    lut = np.full(int(max(mapping.keys(), default=0)) + 1, num_classes, np.int64)
+    for k, v in mapping.items():
+        lut[k] = v
+    raw = label_img.astype(np.int64)
+    out = lut[np.clip(raw, 0, len(lut) - 1)]
+    return np.where((raw < 0) | (raw >= len(lut)), num_classes, out)
+
+
+def render_palette(label_img: np.ndarray, num_classes: int) -> np.ndarray:
+    """Label map -> RGB float image via the ScanNet palette; ids ==
+    num_classes (unlabeled) map to black."""
+    pal = COLORMAP[: num_classes + 1] / 255.0
+    ids = np.clip(np.asarray(label_img, np.int64) + 1, 0, num_classes)
+    ids = np.where(np.asarray(label_img) >= num_classes, 0, ids)
+    return pal[ids].astype(np.float32)

@@ -215,7 +215,7 @@ def _composite_forward_cuda(
             n_contrib.data_ptr(), stream,
         )
     kernels.check(lib, err, "sgt_composite_fwd")
-    LAUNCHES.add()
+    LAUNCHES.add(key=num_ch)
     return color, depth, final_t, n_contrib
 
 

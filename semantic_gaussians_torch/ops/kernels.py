@@ -34,7 +34,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
 )
-SOURCES = ("expand", "composite_fwd", "composite_bwd", "segsum")
+SOURCES = ("expand", "composite_fwd", "composite_bwd", "segsum", "segsum_probe")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -42,20 +42,30 @@ BUILD_LOG: Dict[str, str] = {}  # name -> nvcc's output (ptxas resource use)
 
 
 class LaunchCounter:
-    """A thread-safe count of kernel launches."""
+    """A thread-safe count of kernel launches, in total and by an optional
+    key (the forward composite counts by channel width)."""
 
     def __init__(self, name: str):
         self.name = name
         self._n = 0
+        self._by_key: Dict[object, int] = {}
         self._lock = threading.Lock()
 
-    def add(self, n: int = 1) -> None:
+    def add(self, n: int = 1, key=None) -> None:
         with self._lock:
             self._n += n
+            if key is not None:
+                self._by_key[key] = self._by_key.get(key, 0) + n
 
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._by_key = {}
+
+    @property
+    def by_key(self) -> Dict[object, int]:
+        with self._lock:
+            return dict(self._by_key)
 
     @property
     def count(self) -> int:

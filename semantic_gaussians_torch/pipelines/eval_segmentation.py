@@ -1,0 +1,159 @@
+"""Open-vocabulary segmentation evaluation (mIoU / mAcc).
+
+Port of semantic_gaussians_tpu.pipelines.eval_segmentation. Two prediction
+paths per view:
+  pred_on_3d=True : per-Gaussian argmax -> render one-hot class vectors ->
+                    per-pixel argmax
+  pred_on_3d=False: render raw features -> normalize -> dot text -> argmax
+The text matrix has 'other' prepended at row 0; predicted train-ids are the
+argmax index - 1, with 'other' mapping to the confusion matrix's unlabeled
+column. The confusion is summed on the device that holds the Gaussians.
+`voxelize_for_net` (the sparse UNet's input) is ported with the distill
+slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.gaussians import GaussianParams
+from ..renderer import render_chn
+from ..utils.camera import Camera
+from ..utils.metrics import confusion_matrix, confusion_matrix_device, evaluate_confusion
+
+
+def text_feature_matrix(text_encoder, class_labels: Sequence[str]) -> np.ndarray:
+    """[K+1, D] normalized text features with 'other' at row 0."""
+    labelset = ["other"] + list(class_labels)
+    return np.asarray(text_encoder.extract_text_feature(labelset), np.float32)
+
+
+def _normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> torch.Tensor:
+    return x / (torch.linalg.norm(x, dim=dim, keepdim=True) + eps)
+
+
+def predict_label_image(
+    camera: Camera,
+    params: GaussianParams,
+    alive: torch.Tensor,
+    gauss_feats: torch.Tensor,  # [cap, D]
+    text: torch.Tensor,  # [K+1, D] ('other' row 0)
+    pred_on_3d: bool = False,
+    backend: str = "tiled",
+    tile_shape=None,
+    pair_budget: Optional[int] = None,
+) -> torch.Tensor:
+    """[H, W] int32 predicted ids in [0, K]; K = unlabeled/other (class ids
+    0-based, 'other' and empty pixels mapped to K)."""
+    kp1 = text.shape[0]
+    kw = dict(alive=alive, backend=backend, pair_budget=pair_budget)
+    if tile_shape is not None:
+        kw["tile_shape"] = tile_shape
+    with torch.no_grad():
+        if pred_on_3d:
+            cls = torch.argmax(_normalize(gauss_feats) @ text.T, dim=-1)  # 0 = other
+            onehot = torch.nn.functional.one_hot(cls, kp1).to(torch.float32) * alive[:, None]
+            pix = torch.argmax(render_chn(camera, params, onehot, **kw)["render"], dim=-1)
+        else:
+            out = render_chn(camera, params, gauss_feats, **kw)
+            pix = torch.argmax(_normalize(out["render"]) @ text.T, dim=-1)
+    # 0 ('other') -> K (the unlabeled column); else id - 1
+    return torch.where(pix == 0, kp1 - 1, pix - 1).to(torch.int32)
+
+
+def ensemble_features(feats_2d: torch.Tensor, feats_3d: torch.Tensor, mode: str = "concat"):
+    """'concat' ensemble: stacked normalized features (the caller tiles the
+    text); for 'argmax' use ensemble_argmax_class."""
+    if mode != "concat":
+        raise ValueError("use ensemble_argmax_class for argmax mode")
+    return torch.cat([_normalize(feats_2d), _normalize(feats_3d)], dim=-1)
+
+
+def ensemble_argmax_class(
+    feats_2d: torch.Tensor, feats_3d: torch.Tensor, text: torch.Tensor
+) -> torch.Tensor:
+    """Per-Gaussian class by max similarity over both feature sets."""
+    s2 = _normalize(feats_2d) @ text.T
+    s3 = _normalize(feats_3d) @ text.T
+    return torch.argmax(torch.maximum(s2, s3), dim=-1)
+
+
+def voxel_feats_to_gaussians(
+    voxel_feats: np.ndarray,
+    inverse: np.ndarray,
+    n_gaussians: int,
+    cap: int,
+    num_valid: Optional[int] = None,
+    device="cpu",
+) -> torch.Tensor:
+    """Scatter per-voxel outputs back to per-Gaussian features [cap, F] via
+    the voxelizer's point -> voxel map. Gaussians mapped to a voxel id >=
+    num_valid (dropped by a static voxel budget) get a zero row."""
+    vf = np.asarray(voxel_feats)
+    inv = np.asarray(inverse[:n_gaussians])
+    if num_valid is not None and inv.size and int(inv.max(initial=0)) >= num_valid:
+        vf = np.concatenate([vf, np.zeros((1, vf.shape[-1]), vf.dtype)])
+        inv = np.where(inv < num_valid, inv, len(vf) - 1)
+    out = np.zeros((cap, vf.shape[-1]), np.float32)
+    out[:n_gaussians] = vf[inv]
+    return torch.from_numpy(out).to(device)
+
+
+@dataclasses.dataclass
+class EvalAccumulator:
+    num_classes: int
+    confusion: np.ndarray = None
+
+    def __post_init__(self):
+        if self.confusion is None:
+            self.confusion = np.zeros((self.num_classes, self.num_classes + 1), np.int64)
+
+    def add_view(self, pred_ids: np.ndarray, gt_ids: np.ndarray):
+        """pred / gt [H, W]; ids in [0, num_classes] (num_classes = unlabeled)."""
+        self.confusion += confusion_matrix(
+            pred_ids.reshape(-1), gt_ids.reshape(-1), self.num_classes
+        )
+
+    def report(self, class_names, stdout=True, log_file=None, dataset="eval"):
+        return evaluate_confusion(
+            self.confusion, class_names, stdout=stdout, dataset=dataset, log_file=log_file
+        )
+
+
+def eval_views(
+    cameras: Sequence[Camera],
+    gt_label_images: Sequence[np.ndarray],
+    params: GaussianParams,
+    alive: torch.Tensor,
+    gauss_feats: torch.Tensor,
+    text: np.ndarray,
+    class_labels: Sequence[str],
+    pred_on_3d: bool = False,
+    backend: str = "tiled",
+    stdout: bool = False,
+    log_file: Optional[str] = None,
+    chunk_views: int = 8,
+    pair_budget: Optional[int] = None,
+):
+    """Evaluate one scene over its views. Returns (mIoU, mAcc, confusion).
+    Each view's label image and confusion stay on the device; only the
+    summed [K, K+1] matrix comes back. `chunk_views` is accepted for the
+    JAX package's configs (its chunks amortise XLA dispatches; the result is
+    the per-view loop's)."""
+    num_classes = len(class_labels)
+    dev = params.device
+    text_t = torch.as_tensor(np.asarray(text, np.float32)).to(dev)
+    conf = torch.zeros((num_classes, num_classes + 1), dtype=torch.int64, device=dev)
+    for cam, gt in zip(cameras, gt_label_images):
+        pred = predict_label_image(
+            cam, params, alive, gauss_feats, text_t, pred_on_3d, backend,
+            pair_budget=pair_budget,
+        )
+        gt_t = torch.as_tensor(np.asarray(gt)).to(dev)
+        conf += confusion_matrix_device(pred, gt_t, num_classes)
+    acc = EvalAccumulator(num_classes, conf.cpu().numpy())
+    miou, macc = acc.report(class_labels, stdout=stdout, log_file=log_file)
+    return miou, macc, acc.confusion

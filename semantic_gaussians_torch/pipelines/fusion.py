@@ -1,26 +1,217 @@
-"""Fused per-Gaussian features on disk.
+"""2D -> 3D projection: fuse per-view 2D features onto Gaussians.
 
-Port of the I/O half of semantic_gaussians_tpu.pipelines.fusion: the
-reference's `.pt` layout {feat: half [M, C], mask_full: bool [N]}, where
-`feat` holds the rows of the visited Gaussians. Fusion itself is ported in a
-later slice.
+Port of semantic_gaussians_tpu.pipelines.fusion. Every k-th training view
+contributes a per-pixel feature map from a 2D predictor; each Gaussian's
+centre is projected into the view, tested for occlusion against a depth map
+(depth from 'image' | 'render' | 'surface' | none) and, where visible,
+gathers the pixel's feature into a running sum with a visit count. The
+average and a visited mask are written in the reference's `.pt` layout
+{feat: half [M, C], mask_full: bool [N]}, optionally as random point
+subsets for distillation.
+
+The accumulators live on the device that holds the Gaussians and are
+updated in place; one view's feature map is on the device at a time.
+`chunk_views` is accepted for the JAX package's configs: its chunked scan
+amortises XLA dispatches and gives the per-view loop's result, which is
+what runs here. `make_parallel_fuse_step` belongs to the multi-device slice.
 """
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..core.gaussians import GaussianParams
+from ..data.fusion_utils import compute_mapping, surface_depth
+from ..renderer import render
+from ..utils.camera import Camera, fov2focal
 
-def save_fused_features(out_path, features: np.ndarray, visited: np.ndarray):
-    """Write {feat: half [M, C], mask_full: bool [N]} to `out_path`."""
+DEPTH_MODES = ("render", "image", "surface", "none")
+
+
+@dataclasses.dataclass(frozen=True)
+class FusionConfig:
+    img_dim: tuple = (648, 484)  # feature-map (W, H)
+    every_k_views: int = 5
+    depth: str = "render"  # image | render | surface | none
+    depth_scale: float = 1000.0
+    visibility_threshold: float = 0.05
+    cut_boundary: int = 10
+    chunk_views: int = 4  # accepted; the per-view loop gives the same result
+    # Host -> device dtype of the per-view feature maps. float16 halves the
+    # dominant transfer and matches the precision 2D features are stored
+    # in; accumulation stays float32 either way.
+    feat_dtype: str = "float32"
+
+
+def _intrinsic_for(camera: Camera, img_dim) -> np.ndarray:
+    w, h = img_dim
+    k = np.eye(3, dtype=np.float32)
+    k[0, 0] = fov2focal(camera.fov_x, w)
+    k[1, 1] = fov2focal(camera.fov_y, h)
+    k[0, 2] = w / 2.0
+    k[1, 2] = h / 2.0
+    return k
+
+
+def fuse_view(
+    sem_sum: torch.Tensor,  # [cap, C] float32, updated in place
+    counts: torch.Tensor,  # [cap] float32, updated in place
+    means: torch.Tensor,  # [cap, 3]
+    alive: torch.Tensor,  # [cap] bool
+    world_view: torch.Tensor,  # [4, 4]
+    intrinsic: torch.Tensor,  # [3, 3]
+    feat_map: torch.Tensor,  # [H, W, C], float32 or float16
+    depth_map: Optional[torch.Tensor],  # [H, W] or None
+    img_dim: tuple,
+    vis_thres: float,
+    cut_bound: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Accumulate one view's features onto the Gaussians; returns the two
+    accumulators it was given. Only the visible Gaussians' rows are
+    gathered (in the map's dtype) and added, so no [cap, C] temporary is
+    built."""
+    mapping = compute_mapping(
+        world_view, means, intrinsic, img_dim, depth_map, vis_thres, cut_bound
+    )
+    mask = (mapping[:, 2] > 0) & alive
+    rows = torch.nonzero(mask)[:, 0]
+    v, u = mapping[rows, 0].long(), mapping[rows, 1].long()
+    # rows are distinct, so the adds below have one writer per element
+    sem_sum.index_add_(0, rows, feat_map[v, u].to(sem_sum.dtype))
+    counts.index_add_(0, rows, torch.ones_like(rows, dtype=counts.dtype))
+    return sem_sum, counts
+
+
+def upload_map(feat: np.ndarray, dev: torch.device, staging: list) -> torch.Tensor:
+    """One view's feature map on `dev`. For a CUDA device the copy goes
+    through one pinned host buffer kept in `staging` (a list the caller
+    owns, empty at first) and reused by every view of the same shape."""
+    t = torch.from_numpy(np.ascontiguousarray(feat))
+    if dev.type != "cuda":
+        return t.to(dev)
+    if not staging or staging[0].shape != t.shape or staging[0].dtype != t.dtype:
+        staging[:] = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)]
+    staging[0].copy_(t)
+    on_dev = staging[0].to(dev, non_blocking=True)
+    torch.cuda.current_stream(dev).synchronize()  # the buffer is reused
+    return on_dev
+
+
+def view_depth(
+    depth_mode: str,
+    camera: Camera,
+    params: GaussianParams,
+    alive: torch.Tensor,
+    intrinsic: torch.Tensor,
+    cfg: FusionConfig,
+    depth_path: Optional[str] = None,
+    backend: str = "tiled",
+    tile_shape=None,
+) -> Optional[torch.Tensor]:
+    """The [H, W] depth map one view's occlusion test reads, or None:
+    rendered ('render'), loaded from a depth image ('image'), made from
+    the Gaussian centres ('surface')."""
+    w, h = cfg.img_dim
+    if depth_mode == "render":
+        kw = {} if tile_shape is None else {"tile_shape": tile_shape}
+        return render(camera, params, alive=alive, override_shape=cfg.img_dim,
+                      backend=backend, **kw)["depth"]
+    if depth_mode == "image":
+        from PIL import Image
+
+        d = np.asarray(Image.open(depth_path)).astype(np.float32)
+        if d.shape != (h, w):
+            d = np.asarray(Image.fromarray(d).resize((w, h), Image.NEAREST))
+        return torch.from_numpy(d / np.float32(cfg.depth_scale)).to(params.device)
+    if depth_mode == "surface":
+        return surface_depth(camera.world_view, params.means, intrinsic, cfg.img_dim,
+                             cfg.cut_boundary, valid=alive)
+    return None
+
+
+def fuse_scene(
+    params: GaussianParams,
+    alive: torch.Tensor,
+    cameras: Sequence[Camera],
+    feature_provider,
+    cfg: FusionConfig = FusionConfig(),
+    image_paths: Optional[Sequence[str]] = None,
+    depth_paths: Optional[Sequence[str]] = None,
+    tile_shape=None,
+    backend: str = "tiled",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fuse features over every k-th view, on the device that holds
+    `params`. Returns (features [cap, C] float32 averaged, visited [cap]
+    bool)."""
+    dev = params.device
+    cap = params.capacity
+    sem = torch.zeros((cap, feature_provider.embedding_dim), dtype=torch.float32, device=dev)
+    counts = torch.zeros((cap,), dtype=torch.float32, device=dev)
+    depth_mode = cfg.depth if cfg.depth not in (None, "None") else "none"
+    if depth_mode not in DEPTH_MODES:
+        raise ValueError(f"unknown depth mode {cfg.depth!r}")
+    staging: list = []
+    with torch.no_grad():
+        for vi in list(range(len(cameras)))[:: cfg.every_k_views]:
+            cam = cameras[vi].to(dev)
+            path = image_paths[vi] if image_paths is not None else (cam.image_name or str(vi))
+            feat = upload_map(
+                np.asarray(feature_provider.extract_image_feature(path, cfg.img_dim),
+                           np.dtype(cfg.feat_dtype)),
+                dev, staging,
+            )
+            intrinsic = torch.from_numpy(_intrinsic_for(cam, cfg.img_dim)).to(dev)
+            depth_map = view_depth(
+                depth_mode, cam, params, alive, intrinsic, cfg,
+                depth_paths[vi] if depth_mode == "image" else None, backend, tile_shape,
+            )
+            fuse_view(
+                sem, counts, params.means, alive, cam.world_view, intrinsic, feat, depth_map,
+                cfg.img_dim, cfg.visibility_threshold, cfg.cut_boundary,
+            )
+            del feat
+        visited = counts > 0
+        sem /= torch.clamp(counts, min=1.0)[:, None]
+    return sem, visited
+
+
+def save_fused_features(
+    out_path,
+    features: np.ndarray,
+    visited: np.ndarray,
+    n_split_points: int = 999_999_999,
+    num_rand_file_per_scene: int = 1,
+    seed: int = 0,
+):
+    """Write {feat: half [M, C], mask_full: bool [N]} to `out_path`. With
+    `n_split_points` below the visited count each file holds a random subset
+    of that many visited points (numpy `default_rng(seed).choice`, as the
+    JAX package draws it); with several files per scene they are named
+    `<stem>_<k><suffix>`."""
     out_path = Path(out_path)
     out_path.parent.mkdir(parents=True, exist_ok=True)
-    mask_full = np.asarray(visited).astype(bool)
-    feat = torch.from_numpy(np.asarray(features, np.float32)[mask_full]).half()
-    torch.save({"feat": feat, "mask_full": torch.from_numpy(mask_full)}, out_path)
+    features = np.asarray(features, np.float32)
+    visited = np.asarray(visited).astype(bool)
+    n = visited.shape[0]
+    n_vis = int(visited.sum())
+    rng = np.random.default_rng(seed)
+    for k in range(num_rand_file_per_scene):
+        if n_split_points < n_vis:
+            sel_idx = rng.choice(np.where(visited)[0], n_split_points, replace=False)
+            mask_full = np.zeros(n, bool)
+            mask_full[sel_idx] = True
+        else:
+            mask_full = visited
+        feat = torch.from_numpy(features[mask_full]).half()
+        name = (
+            out_path if num_rand_file_per_scene == 1
+            else out_path.with_name(f"{out_path.stem}_{k}{out_path.suffix}")
+        )
+        torch.save({"feat": feat, "mask_full": torch.from_numpy(mask_full)}, name)
 
 
 def load_fused_features(

@@ -6,6 +6,7 @@ raises — there is no silent CPU fallback.
 """
 from __future__ import annotations
 
+import subprocess
 from typing import Optional, Union
 
 import torch
@@ -19,3 +20,18 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "or --device cpu) to run on the CPU"
         )
     return dev
+
+
+def card_stamp(device: Union[str, torch.device]) -> str:
+    """What a measurement is stamped with: for a CUDA device its name and
+    power limit as `nvidia-smi --query-gpu=name,power.limit` prints them
+    (a card set below its maximum limit runs slower under load), else the
+    device's type."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    return out[dev.index or 0] if out else torch.cuda.get_device_name(dev)

@@ -86,6 +86,39 @@ def test_train_cli_raises_without_cuda(monkeypatch, tmp_path):
             train.main(args + cpu)
 
 
+@pytest.mark.parametrize("cli,yaml,section", [
+    ("fusion", "fusion_scannet.yaml", "fusion"),
+    ("eval_segmentation", "eval.yaml", "eval"),
+])
+def test_fusion_and_eval_clis_raise_without_cuda(monkeypatch, tmp_path, cli, yaml, section):
+    """The fusion and eval CLIs refuse to start without CUDA unless the CPU
+    was asked for; asked for, they get as far as the (missing) scene."""
+    import importlib
+
+    from semantic_gaussians_torch.config.config import default_config_dir
+
+    main = importlib.import_module(f"semantic_gaussians_torch.cli.{cli}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = [str(default_config_dir() / yaml), f"scene.scene_path={tmp_path}",
+            f"model.model_dir={tmp_path}", f"fusion.out_dir={tmp_path / 'out'}"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(args)
+    for cpu in (["--device", "cpu"], [f"{section}.device=cpu"]):
+        with pytest.raises(ValueError, match="Could not recognize scene type"):
+            main(args + cpu)
+
+
+@pytest.mark.parametrize("tool", ["exp_panel", "exp_panel2"])
+def test_probe_tools_raise_without_cuda(monkeypatch, tool):
+    import importlib
+
+    main = importlib.import_module(f"semantic_gaussians_torch.tools.{tool}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--scale", "0.001"])
+    assert main(["--device", "cpu", "--scale", "0.001"])
+
+
 def test_wrappers_reject_other_devices():
     from semantic_gaussians_torch.ops.composite import composite_backward, composite_forward
     from semantic_gaussians_torch.ops.expand import expand_pairs
@@ -101,6 +134,12 @@ def test_wrappers_reject_other_devices():
         composite_backward(g, g, m, m, m, g[0], g, g, m, 1, 16, 32)
     with pytest.raises(ValueError, match="unsupported device"):
         segsum_contiguous(g, m, 4)
+    from semantic_gaussians_torch.ops.segsum_probe import segsum_probe
+
+    for mode in ("fold", "window"):
+        with pytest.raises(ValueError, match="unsupported device"):
+            segsum_probe(torch.zeros((512, 16), device="meta"),
+                         torch.zeros(512, dtype=torch.int32, device="meta"), mode)
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
@@ -120,7 +159,11 @@ def test_failed_build_raises(monkeypatch, tmp_path):
         kernels.build_all(["expand"])
     with pytest.raises(RuntimeError, match="nvcc failed for composite_bwd.cu"):
         kernels.build_all()
-    assert set(kernels.SOURCES) == {"expand", "composite_fwd", "composite_bwd", "segsum"}
+    with pytest.raises(RuntimeError, match="nvcc failed for segsum_probe.cu"):
+        kernels.build_all(["segsum_probe"])
+    assert set(kernels.SOURCES) == {"expand", "composite_fwd", "composite_bwd", "segsum",
+                                    "segsum_probe"}
+    assert all((kernels.CSRC / f"{name}.cu").is_file() for name in kernels.SOURCES)
     # the bit-compared alpha and cull decisions build without FMA contraction
     assert "-fmad=false" in kernels.NVCC_FLAGS
 

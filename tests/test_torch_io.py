@@ -1,6 +1,7 @@
 """Port parity: Gaussian PLY checkpoints, fused-feature .pt files, the
-numpy carry-across of GaussianParams, point-cloud PLYs and Blender scene
-loading, all bit for bit."""
+numpy carry-across of GaussianParams, point-cloud PLYs, Blender scene
+loading, dynamic-scene params.npz and the weight-free 2D feature providers,
+all bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -142,3 +143,120 @@ def test_load_scene_blender_cameras_match_jax(tmp_path):
         tcam, jcam = realize_camera(gc), jax_realize(wc)
         for k in ("world_view", "full_proj", "camera_center", "image"):
             np.testing.assert_array_equal(np_(getattr(tcam, k)), np_(getattr(jcam, k)))
+
+
+# ---------------------------------------------------------------- dynamic scenes
+def _write_dynamic_npz(path, t=3, n=90, seed=14, iso_scales=False, flat_opacity=False):
+    rng = np.random.default_rng(seed)
+    np.savez(
+        path,
+        means3D=rng.normal(size=(t, n, 3)).astype(np.float32),
+        rgb_colors=rng.uniform(size=(t, n, 3)).astype(np.float32),
+        unnorm_rotations=rng.normal(size=(t, n, 4)).astype(np.float32),
+        logit_opacities=rng.normal(size=(n,) if flat_opacity else (n, 1)).astype(np.float32),
+        log_scales=rng.normal(size=(n, 1 if iso_scales else 3)).astype(np.float32),
+        seg_colors=rng.uniform(size=(n, 3)).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("iso_scales,flat_opacity", [(False, False), (True, True)])
+def test_dynamic_npz_matches_jax(tmp_path, iso_scales, flat_opacity):
+    """params.npz loads into the same scene, and params_at(t) gives the same
+    leaves bit for bit, in both packages; `from_numpy` carries a JAX scene
+    over."""
+    from semantic_gaussians_tpu.io.dynamic_npz import load_dynamic_npz as jax_load_dyn
+    from semantic_gaussians_torch.io.dynamic_npz import DynamicScene, load_dynamic_npz
+
+    path = tmp_path / "params.npz"
+    _write_dynamic_npz(path, iso_scales=iso_scales, flat_opacity=flat_opacity)
+    want, got = jax_load_dyn(path), load_dynamic_npz(path)
+    assert got.capacity == want.capacity == 4096 and got.num_timesteps == 3
+    carried = DynamicScene.from_numpy(
+        {k: np.asarray(getattr(want, k)) for k in
+         ("means", "colors", "rotations", "opacity_logits", "log_scales", "is_fg")},
+        want.capacity)
+    np.testing.assert_array_equal(np_(got.foreground_mask()), np_(want.foreground_mask()))
+    for t, deg in ((0, 0), (2, 0), (1, 3)):
+        jp, jalive = want.params_at(t, sh_degree=deg)
+        for scene in (got, carried):
+            tp, talive = scene.params_at(t, sh_degree=deg)
+            np.testing.assert_array_equal(np_(talive), np_(jalive))
+            for f in FIELDS:
+                a, b = np_(getattr(jp, f)), np_(getattr(tp, f))
+                assert a.shape == b.shape and b.dtype == np.float32, f
+                np.testing.assert_array_equal(a, b, err_msg=f)
+    assert load_dynamic_npz(path, capacity=128).params_at(0)[0].capacity == 128
+
+
+# ---------------------------------------------------------------- 2D providers
+def test_random_provider_matches_jax():
+    from semantic_gaussians_tpu.models.predictors import RandomFeatureProvider as JaxProvider
+    from semantic_gaussians_torch.models.predictors import RandomFeatureProvider
+
+    a, b = JaxProvider(12, feat_hw=(30, 40)), RandomFeatureProvider(12, feat_hw=(30, 40))
+    for size in ((64, 48), (40, 30), None):
+        np.testing.assert_array_equal(
+            b.extract_image_feature("scene/color/17.jpg", size),
+            a.extract_image_feature("scene/color/17.jpg", size))
+    assert b.extract_image_feature("x", (64, 48)).shape == (48, 64, 12)
+    np.testing.assert_array_equal(
+        b.extract_text_feature(["wall", "a chair"]), a.extract_text_feature(["wall", "a chair"]))
+
+
+@pytest.mark.parametrize("ext", ["npy", "npz", "pt", "pt_dict"])
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+def test_precomputed_provider_matches_jax(tmp_path, ext, layout):
+    """.npy / .npz / .pt (a tensor, or a dict with `feat`) exports load to
+    the same [H, W, C] float32 map in both packages: CHW detected through
+    embedding_dim, nearest resize to the asked size; the port's .pt branch
+    loads with weights_only=True."""
+    from semantic_gaussians_tpu.models.predictors import (
+        PrecomputedFeatureProvider as JaxProvider,
+    )
+    from semantic_gaussians_torch.models.predictors import PrecomputedFeatureProvider
+
+    rng = np.random.default_rng(15)
+    feat = rng.normal(size=(24, 32, 8)).astype(np.float16)
+    stored = feat if layout == "hwc" else np.moveaxis(feat, -1, 0)
+    if ext == "npy":
+        np.save(tmp_path / "frame7.npy", stored)
+    elif ext == "npz":
+        np.savez(tmp_path / "frame7.npz", feat=stored)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(stored))
+        torch.save({"feat": t} if ext == "pt_dict" else t, tmp_path / "frame7.pt")
+    a, b = JaxProvider(str(tmp_path), 8), PrecomputedFeatureProvider(tmp_path, 8)
+    for size in ((32, 24), (64, 48), None):
+        got = b.extract_image_feature("/data/color/frame7.jpg", size)
+        np.testing.assert_array_equal(got, a.extract_image_feature("/data/color/frame7.jpg", size))
+        assert got.dtype == np.float32
+        assert got.shape == ((24, 32, 8) if size is None else (size[1], size[0], 8))
+    np.testing.assert_array_equal(b.extract_image_feature("frame7", None), feat.astype(np.float32))
+    half = PrecomputedFeatureProvider(tmp_path, 8, dtype="float16").extract_image_feature(
+        "frame7", (64, 48))
+    assert half.dtype == np.float16  # the stored precision, same values
+    np.testing.assert_array_equal(half.astype(np.float32), b.extract_image_feature("frame7", (64, 48)))
+    with pytest.raises(FileNotFoundError):
+        b.extract_image_feature("frame8.jpg", None)
+    with pytest.raises(NotImplementedError):
+        b.extract_text_feature(["wall"])
+
+
+def test_make_predictor_dispatch(tmp_path):
+    from semantic_gaussians_torch.config.config import DotDict
+    from semantic_gaussians_torch.models import predictors as tp
+
+    cfg = DotDict.wrap({"feature_dir": str(tmp_path), "embedding_dim": 32})
+    for name in ("precomputed", "openseg"):
+        p = tp.make_predictor(name, cfg)
+        assert isinstance(p, tp.PrecomputedFeatureProvider) and p.embedding_dim == 32
+    assert tp.make_predictor("random", cfg).embedding_dim == 32
+    assert tp.make_predictor("precomputed", cfg).dtype == np.float32
+    assert tp.make_predictor("precomputed", dict(cfg, feat_dtype="float16")).dtype == np.float16
+    for name in ("lseg", "samclip", "vlpart"):
+        with pytest.raises(NotImplementedError, match="2D-models slice"):
+            tp.make_predictor(name, cfg)
+    with pytest.raises(NotImplementedError, match="2D-models slice"):
+        tp.TorchCLIPTextEncoder("/no/such/checkpoint")
+    with pytest.raises(ValueError, match="unknown model_2d"):
+        tp.make_predictor("dinov9", cfg)

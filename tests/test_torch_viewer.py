@@ -1,8 +1,9 @@
 """Port parity: the viewer service. The port's ViewerState on the CPU vs
 the JAX ViewerState (view_server.py, render.backend: pallas) on one small
 scene with 16-dim fused features: all four modes (uint8 images within 1,
-Semantic class maps equal), edit and reset, and one HTTP round trip through
-the port's server with the PNG decoded by zlib."""
+Semantic class maps equal), edit and reset, one HTTP round trip through
+the port's server with the PNG decoded by zlib, and the replay of a dynamic
+scene by timestep and by wall clock."""
 import json
 import pathlib
 import struct
@@ -142,3 +143,47 @@ def test_http_round_trip(states):
         httpd.server_close()
         t.join(timeout=30)
     assert not t.is_alive()
+
+
+def test_dynamic_replay_matches_jax(tmp_path, monkeypatch):
+    """model.dynamic: both servers load params.npz and render timestep t
+    (`t=`, wrapping past the end) or, with play=1, the timestep the wall
+    clock gives at `fps`; images within 1 of 255."""
+    import time
+
+    import view_server as jax_vs
+
+    rng = np.random.default_rng(53)
+    steps, n = 4, 300
+    means = (rng.normal(size=(1, n, 3)) * [1.0, 0.4, 0.6] + [0, 0, 3]).astype(np.float32)
+    means = means + np.linspace(0, 0.6, steps, dtype=np.float32)[:, None, None]
+    np.savez(
+        tmp_path / "params.npz", means3D=means,
+        rgb_colors=rng.uniform(size=(steps, n, 3)).astype(np.float32),
+        unnorm_rotations=rng.normal(size=(steps, n, 4)).astype(np.float32),
+        logit_opacities=rng.uniform(0, 3, size=(n, 1)).astype(np.float32),
+        log_scales=rng.uniform(-3, -2, size=(n, 3)).astype(np.float32),
+        seg_colors=rng.uniform(size=(n, 3)).astype(np.float32),
+    )
+    cfg = tmp_path / "view.yaml"
+    cfg.write_text(f"model:\n  model_dir: {tmp_path}\n  dynamic: true\n"
+                   "render:\n  backend: pallas\n  device: cpu\n")
+    jstate = jax_vs.ViewerState(jax_load_config(str(cfg), []))
+    tstate = torch_vs.ViewerState(load_config(str(cfg), ["render.backend=tiled"]))
+    assert tstate.dynamic.num_timesteps == steps
+    q = {"mode": ["RGB"], "w": ["96"], "h": ["64"], "z": ["0"]}
+    frames = {}
+    for t in (0, 2, 5):  # 5 wraps to 1
+        a, b = jstate.render(dict(q, t=[str(t)])), tstate.render(dict(q, t=[str(t)]))
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+        frames[t] = b
+    assert not np.array_equal(frames[0], frames[2])
+    np.testing.assert_array_equal(frames[5], tstate.render(dict(q, t=["1"])))
+    # wall-clock replay: 2.6 s after the start at 1 frame a second is timestep 2
+    now = time.time()
+    jstate._start_time = tstate._start_time = now - 2.6
+    monkeypatch.setattr(time, "time", lambda: now)
+    play = dict(q, play=["1"], fps=["1"], t=["0"])
+    np.testing.assert_array_equal(tstate.render(play), frames[2])
+    assert np.abs(jstate.render(play).astype(int) - frames[2].astype(int)).max() <= 1
+    np.testing.assert_array_equal(tstate.render(dict(play, play=["0"])), frames[0])

@@ -5,6 +5,8 @@ JAX reference (semantic_gaussians_tpu, on the CPU, Pallas in interpret
 mode) and the PyTorch port (semantic_gaussians_torch, plain versions on the
 CPU).
 """
+import json
+
 import numpy as np
 import jax.numpy as jnp
 import torch
@@ -77,3 +79,30 @@ def torch_to_jax_proj(proj):
 def np_(x):
     """numpy view of a JAX array or a torch tensor."""
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def write_toy_blender_scene(root, views=6, w=64, h=48, seed=25):
+    """A Blender-layout scene on disk: `views` cameras on an arc looking at
+    the cloud of `scene_arrays` (centred 4 units down +z), with random
+    images (fusion and evaluation read only their size and name)."""
+    from semantic_gaussians_torch.cli.view_server import encode_png
+
+    rng = np.random.default_rng(seed)
+    (root / "train").mkdir(parents=True)
+    frames = []
+    for i in range(views):
+        ang = 0.25 * (i - views / 2) * 6 / views
+        pos = np.array([4 * np.sin(ang), 0.2 * (-1) ** i, 4 - 4 * np.cos(ang)])
+        fwd = np.array([0.0, 0.0, 4.0]) - pos
+        fwd /= np.linalg.norm(fwd)
+        right = np.cross([0.0, 1.0, 0.0], fwd)
+        right /= np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        c2w = np.eye(4)
+        c2w[:3, :3] = np.stack([right, -down, -fwd], axis=1)  # OpenGL axes
+        c2w[:3, 3] = pos
+        img = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        (root / "train" / f"r_{i}.png").write_bytes(encode_png(img))
+        frames.append({"file_path": f"./train/r_{i}", "transform_matrix": c2w.tolist()})
+    (root / "transforms_train.json").write_text(
+        json.dumps({"camera_angle_x": 1.0, "frames": frames}))
