@@ -16,9 +16,13 @@ and holds each hand-written kernel against its plain PyTorch version:
      random upstream gradient (rows at rtol 1e-4, atol 1e-5 x column max)
      and the segment sum on its rows at D = 9 and 774 (rtol 1e-5, atol
      1e-6 x column max), each of the two bit-identical over two runs; the
-     segment-sum probe in both modes at the probe tools' full shapes (rtol
-     1e-5, atol 1e-5 x column max: see check_probe_kernels), bit-identical
-     over two runs.
+     segment sum at the probe tools' four shapes (V0, V4, both resident
+     shapes) against the plain version summed in float64 (same tolerance:
+     see check_tool_segsums); the segment-sum probe in both modes at the
+     probe tools' full shapes, with sorted owners and with owners out of
+     order inside every 64th chunk (rtol 1e-5, atol 1e-5 x column max: see
+     check_probe_kernels), bit-identical over two runs; both summing
+     kernels on the small adversarial cases of tools/summing_cases.py.
   3. viewer path: a 100k-Gaussian scene (bench.py's scene law) with 768-dim
      fused features, served over HTTP at 640x480: RGB, Depth, Semantic and
      Relevancy renders, an edit, a reset, then render_chn at C = 768. All
@@ -154,6 +158,27 @@ def host_ms(fn, reps):
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def device_us(fn, reps=20):
+    """Device time of one call of fn in microseconds: fn's kernels are
+    captured once into a CUDA graph, and `reps` replays of the graph are
+    timed by CUDA events. Unlike an event time over back-to-back calls of
+    fn itself, this leaves out the time the host takes to launch each
+    kernel (a replay is one launch), which decides the time of kernels of a
+    few tens of microseconds."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # a capture wants a warm-up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps) * 1e3
 
 
 def profile(fn):
@@ -340,7 +365,9 @@ def main():
 
     # ---------------------------------------------------------------- 2b
     bwd, seg = check_backward_kernels(comp_cases, binning, grid, th, tw)
+    tool_seg = check_tool_segsums(dev)
     probe = check_probe_kernels(dev)
+    check_adversarial_cases(dev)
 
     # ---------------------------------------------------------------- 3
     from http.server import ThreadingHTTPServer
@@ -379,14 +406,21 @@ def main():
     tools = run_probe_tools()
 
     kt = time_backward_kernels(bwd, seg)
+    kt["segsum_tools"] = time_segsums(tool_seg)
+    del tool_seg
     pt = time_probe_kernels(probe)
     print(json.dumps({"card": card, "training": {
         k: v for k, v in trained.items() if k != "scene"}, "train_step": step_times,
         "composite_bwd_by_channels": {str(c): {k: v for k, v in d.items()}
                                       for c, d in kt["composite_bwd"].items()},
         "segsum_by_width": {str(d): v for d, v in kt["segsum"].items()},
-        "segsum_probe": pt}, default=str))
+        "segsum_by_shape": kt["segsum_tools"], "segsum_probe": pt}, default=str))
     cb, sg = kt["composite_bwd"], kt["segsum"]
+
+    def segsum_numbers(v):
+        return dict(ms=v["ms"], plain_ms=v["plain_ms"], library_ms=v["library_ms"],
+                    device_us=v["device_us"], library_device_us=v["library_device_us"],
+                    max_abs_err=v["max_abs_err"], bound_ms=max(v["bound"]) * 1e3)
     kernel_lines += [
         kernel_entry("composite_bwd", "semantic_gaussians_torch/csrc/composite_bwd.cu",
                      "semantic_gaussians_tpu/ops/composite_pallas.py:450", cb[3],
@@ -401,12 +435,11 @@ def main():
                      "semantic_gaussians_tpu/ops/segsum.py:81", sg[9],
                      max(d["max_abs_err"] for d in sg.values()), card,
                      also_replaces="semantic_gaussians_tpu/ops/segsum.py:106",
-                     shape="D=9 (RGB training); by_width has D=774; library is index_add_",
-                     by_width={str(d): dict(ms=v["ms"], plain_ms=v["plain_ms"],
-                                            library_ms=v["library_ms"],
-                                            max_abs_err=v["max_abs_err"],
-                                            bound_ms=max(v["bound"]) * 1e3)
-                               for d, v in sg.items()}),
+                     shape="D=9 (RGB training); by_width has D=774, by_shape the probe "
+                           "tools' D=16 shapes; library is index_add_",
+                     by_width={str(d): segsum_numbers(v) for d, v in sg.items()},
+                     by_shape={name: dict(segsum_numbers(v), p=v["p"], rows=v["rows"])
+                               for name, v in kt["segsum_tools"].items()}),
         # The two probe kernels of the JAX tools are one function with one
         # switch, and so is the port's: one entry per mode, each naming the
         # tool that times that mode first.
@@ -644,14 +677,16 @@ def kernel_entry(name, source, replaces, r, max_abs_err, card, **extra):
     }
 
 
-def close_enough(got, want, rtol, atol_scale):
+def close_enough(got, want, rtol, atol_scale, slack=None):
     """None if |got - want| <= rtol |want| + atol_scale * (max |want| of the
-    column) everywhere (columns: the last axis), else a description of the
-    worst element."""
+    column) [+ slack, elementwise] everywhere (columns: the last axis), else
+    a description of the worst element."""
     import torch
 
     col_max = want.abs().amax(dim=0, keepdim=True)
     bound = rtol * want.abs() + atol_scale * col_max
+    if slack is not None:
+        bound = bound + slack
     bad = (got - want).abs() > bound
     bad |= ~torch.isfinite(got)
     if not bool(bad.any()):
@@ -668,7 +703,7 @@ def check_backward_kernels(comp_cases, binning, grid, th, tw):
     must give the same bits. Returns the timing inputs of both kernels."""
     import torch
 
-    from semantic_gaussians_torch.ops import composite, segsum
+    from semantic_gaussians_torch.ops import composite
     from semantic_gaussians_torch.ops.rasterize import generation_rows
 
     dev = binning.tile_start.device
@@ -703,20 +738,7 @@ def check_backward_kernels(comp_cases, binning, grid, th, tw):
         del got
         d = rows.shape[1]
         sargs = (rows, binning.gen_owner, n + 1, binning.num_pairs)
-        out = segsum.segsum_contiguous(*sargs)
-        out2 = segsum.segsum_contiguous(*sargs)
-        ref = segsum.segsum_contiguous_plain(*sargs)
-        torch.cuda.synchronize()
-        if not torch.equal(out, out2):
-            fail(f"segsum D={d}: two runs differ")
-        why = close_enough(out, ref, 1e-5, 1e-6)
-        if why:
-            fail(f"segsum D={d} vs plain: {why}")
-        err = float((out - ref).abs().max())
-        seg[d] = dict(args=sargs, max_abs_err=err)
-        print(f"segsum D={d}: within rtol 1e-5 / atol 1e-6 x column max, bit-identical "
-              f"over two runs, max |kernel - plain| = {err:.3g}")
-        del out, out2, ref
+        seg[d] = dict(args=sargs, max_abs_err=check_segsum(f"D={d}", sargs, exact=False))
     return bwd, seg
 
 
@@ -965,9 +987,9 @@ def time_backward_kernels(bwd, seg):
     index_add_ (the one PyTorch call computing the segment sum)."""
     import torch
 
-    from semantic_gaussians_torch.ops import composite, segsum
+    from semantic_gaussians_torch.ops import composite
 
-    out = {"composite_bwd": {}, "segsum": {}}
+    out = {"composite_bwd": {}}
     for c, case in bwd.items():
         args, work = case["args"], case["work"]
         geom, colors, pair_gaussian, tile_start, tile_count = args[:5]
@@ -988,9 +1010,23 @@ def time_backward_kernels(bwd, seg):
             plain_ms=cuda_ms(lambda: composite.composite_backward_plain(*args), 1),
             bound=(cbytes / PEAK_BYTES, cops / PEAK_F32),
         )
-    for d, case in seg.items():
+    out["segsum"] = time_segsums(seg)
+    return out
+
+
+def time_segsums(cases):
+    """CUDA-event times of the segment sum on each case's arguments, its
+    plain version, its byte bound from the case's live rows, and
+    `index_add_`, the one PyTorch call that computes the same function."""
+    import torch
+
+    from semantic_gaussians_torch.ops import segsum
+
+    out = {}
+    for name, case in cases.items():
         rows, owners, num_rows, limit = case["args"]
-        live = int(limit)
+        d = rows.shape[1]
+        live = rows.shape[0] if limit is None else int(limit)
         # bytes: the live rows and their owners in, the sums out; one add
         # per element read.
         sbytes = live * d * 4 + live * 4 + num_rows * d * 4
@@ -1000,21 +1036,118 @@ def time_backward_kernels(bwd, seg):
         def library():
             torch.zeros((num_rows, d), device=rows.device).index_add_(0, owners_l, rows_l)
 
-        out["segsum"][d] = dict(
-            max_abs_err=case["max_abs_err"],
+        out[name] = dict(
+            max_abs_err=case["max_abs_err"], p=rows.shape[0], rows=num_rows,
             ms=cuda_ms(lambda: segsum.segsum_contiguous(*case["args"]), 20),
             plain_ms=cuda_ms(lambda: segsum.segsum_contiguous_plain(*case["args"]), 3),
             library_ms=cuda_ms(library, 20),
+            device_us=device_us(lambda: segsum.segsum_contiguous(*case["args"])),
+            library_device_us=device_us(library),
             bound=(sbytes / PEAK_BYTES, live * d / PEAK_F32),
         )
     return out
+
+
+def check_segsum(name, args, exact):
+    """The segment sum on `args`, twice for the same bits, against its plain
+    version at rtol 1e-5 / atol 1e-6 x the column's largest |value|. With
+    `exact` the plain version sums in float64: where one segment has
+    thousands to millions of rows, the float32 `index_add_` (atomics in any
+    order) is itself further from the exact sum than that tolerance, and
+    its own error is printed beside the kernel's. A float32 sum's rounding
+    grows with the magnitudes it adds, not with their total, so against
+    float64 the tolerance also has 2e-8 x the sum of the |values| added into
+    the element (a long segment may sum to nearly nothing). Returns the
+    largest |kernel - plain|."""
+    import torch
+
+    from semantic_gaussians_torch.ops import segsum
+
+    out = segsum.segsum_contiguous(*args)
+    again = segsum.segsum_contiguous(*args)
+    plain = segsum.segsum_contiguous_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        fail(f"segsum {name}: two runs differ")
+    ref, slack = plain, None
+    if exact:
+        ref = segsum.segsum_contiguous_plain(*args, acc_dtype=torch.float64)
+        slack = 2e-8 * segsum.segsum_contiguous_plain(
+            args[0].abs(), *args[1:], acc_dtype=torch.float64)
+    why = close_enough(out, ref, 1e-5, 1e-6, slack)
+    if why:
+        fail(f"segsum {name} vs plain: {why}")
+    err = float((out - ref).abs().max()) if out.numel() else 0.0
+    note = ""
+    if exact and out.numel():
+        note = f" (float32 index_add_ against the same: {float((plain - ref).abs().max()):.3g})"
+    print(f"segsum {name}: within rtol 1e-5 / atol 1e-6 x column max of the plain version"
+          f"{' summed in float64' if exact else ''}, bit-identical over two runs, "
+          f"max |kernel - plain| = {err:.3g}{note}")
+    return err
+
+
+def check_tool_segsums(dev):
+    """Kernels 4/5 at the probe tools' shapes, on the tools' own data
+    (d = 16, `limit=None`): V0 (p = 3,670,016 over 1,000,000 rows), V4 (the
+    same owners capped at 49,999: the last segment has ~3.49M rows) and the
+    two resident shapes of exp_panel2. Returns the timing inputs."""
+    import numpy as np
+    import torch
+
+    from semantic_gaussians_torch.tools import exp_panel2
+    from semantic_gaussians_torch.tools import probe_common as pc
+
+    rng = np.random.default_rng(0)  # exp_panel's draws, in its order
+    cot = pc.make_cot(rng, pc.P_FULL, dev)
+    owners_np = pc.make_owners(rng, pc.ROWS_FULL, pc.P_FULL)
+    cases = {
+        "V0": (cot, torch.from_numpy(owners_np).to(dev), pc.ROWS_FULL, None),
+        "V4": (cot, torch.from_numpy(np.minimum(owners_np, 49_999)).to(dev), 50_000, None),
+    }
+    rng = np.random.default_rng(0)  # exp_panel2's
+    cot2 = pc.make_cot(rng, pc.P_FULL, dev)
+    for pp, rr in exp_panel2.RESIDENT_SHAPES:
+        owners = torch.from_numpy(pc.make_owners(rng, rr, pp)).to(dev)
+        cases[f"resident_{pp}"] = (cot2[:pp], owners, rr, None)
+    return {name: dict(args=args, max_abs_err=check_segsum(name, args, exact=True))
+            for name, args in cases.items()}
+
+
+def check_adversarial_cases(dev):
+    """Both summing kernels on the small cases of tools/summing_cases.py (the
+    ones the CPU tests run through the plain versions): tile, limit, width
+    and level edges for the segment sum; ragged chunk groups, fast owners
+    and owners out of order for the probe."""
+    import torch
+
+    from semantic_gaussians_torch.ops import kernels
+    from semantic_gaussians_torch.ops import segsum_probe as sp
+    from semantic_gaussians_torch.tools import summing_cases
+
+    n = 0
+    for c in summing_cases.segsum_cases():
+        limit = None if c.limit is None else torch.tensor(c.limit, dtype=torch.int32, device=dev)
+        args = (torch.from_numpy(c.cot).to(dev), torch.from_numpy(c.owners).to(dev),
+                c.num_rows, limit)
+        check_segsum(f"case {c.name} (P={c.owners.size}, D={c.cot.shape[1]}, "
+                     f"limit={c.limit})", args, exact=True)
+        n += 1
+    for c in summing_cases.probe_cases(kernels.multiprocessors(dev)):
+        cot, owners = torch.from_numpy(c.cot).to(dev), torch.from_numpy(c.owners).to(dev)
+        for mode in sp.MODES:
+            check_probe(f"case {c.name} ({owners.numel() // sp.CHUNK} chunks, "
+                        f"{'sorted' if c.sorted else 'unsorted'}) {mode}", cot, owners, mode)
+            n += 1
+    print(f"adversarial cases: {n} kernel-vs-plain checks passed")
 
 
 def check_probe_kernels(dev):
     """Kernels 6 and 7 (the segment-sum probe, fold and window) against
     their plain version at the probe tools' full shapes (d = 16,
     p = 3,670,016, owners over 1,000,000 rows; exp_panel's data law), each
-    run twice for the same bits.
+    run twice for the same bits; then the same with owners out of order
+    inside every 64th chunk, which takes the kernel's other branch.
 
     Tolerance: rtol 1e-5, atol 1e-5 x the panel's largest |value|. A fold
     entry sums ~12,600 N(0, 1) values in float32; the plain version adds
@@ -1027,36 +1160,54 @@ def check_probe_kernels(dev):
 
     from semantic_gaussians_torch.ops import segsum_probe as sp
     from semantic_gaussians_torch.tools import probe_common as pc
+    from semantic_gaussians_torch.tools.summing_cases import shuffle_inside_chunks
 
     rng = np.random.default_rng(0)
     cot = pc.make_cot(rng, pc.P_FULL, dev)
-    owners = torch.from_numpy(pc.make_owners(rng, pc.ROWS_FULL, pc.P_FULL)).to(dev)
+    owners_np = pc.make_owners(rng, pc.ROWS_FULL, pc.P_FULL)
+    owners = torch.from_numpy(owners_np).to(dev)
     out = {"cot": cot, "owners": owners, "modes": {}}
     for mode in sp.MODES:
-        got = sp.segsum_probe(cot, owners, mode)
-        again = sp.segsum_probe(cot, owners, mode)
-        want = sp.segsum_probe_plain(cot, owners, mode)
-        exact = sp.segsum_probe_plain(cot, owners, mode, acc_dtype=torch.float64)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            fail(f"segsum_probe {mode}: two runs differ")
-        if got.shape != (sp.PANEL, pc.D) or not torch.isfinite(got).all():
-            fail(f"segsum_probe {mode}: bad shape or non-finite values")
-        top = float(want.abs().max())
-        try:
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * top)
-        except AssertionError as e:
-            fail(f"segsum_probe {mode} vs plain: {e}")
-        err = float((got - want).abs().max())
-        err64 = float((got - exact).abs().max())
-        plain64 = float((want - exact).abs().max())
-        rows = int((got != 0).any(dim=1).sum())
-        out["modes"][mode] = dict(max_abs_err=err, err_vs_f64=err64, plain_err_vs_f64=plain64)
-        print(f"segsum_probe {mode}: within rtol 1e-5 / atol 1e-5 x max |{top:.4g}|, "
-              f"bit-identical over two runs, max |kernel - plain| = {err:.3g}; against a "
-              f"float64 sum: kernel {err64:.3g}, plain {plain64:.3g}; {rows} panel rows "
-              f"written, sum {float(got.sum()):.6g}")
+        out["modes"][mode] = check_probe(mode, cot, owners, mode)
+    # The kernel's other branch: owners out of order inside every 64th chunk
+    # (112 of 7,168; each takes a thread per window row that scans the chunk).
+    mixed = torch.from_numpy(shuffle_inside_chunks(rng, owners_np, every=64)).to(dev)
+    for mode in sp.MODES:
+        check_probe(f"{mode}, owners out of order in every 64th chunk", cot, mixed, mode)
     return out
+
+
+def check_probe(name, cot, owners, mode):
+    """The probe on (cot, owners), twice for the same bits, against its
+    plain version (rtol 1e-5, atol 1e-5 x the panel's largest |value|);
+    both are also printed against the plain version summed in float64."""
+    import torch
+
+    from semantic_gaussians_torch.ops import segsum_probe as sp
+
+    got = sp.segsum_probe(cot, owners, mode)
+    again = sp.segsum_probe(cot, owners, mode)
+    want = sp.segsum_probe_plain(cot, owners, mode)
+    exact = sp.segsum_probe_plain(cot, owners, mode, acc_dtype=torch.float64)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"segsum_probe {name}: two runs differ")
+    if got.shape != (sp.PANEL, cot.shape[1]) or not torch.isfinite(got).all():
+        fail(f"segsum_probe {name}: bad shape or non-finite values")
+    top = float(want.abs().max())
+    try:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * top)
+    except AssertionError as e:
+        fail(f"segsum_probe {name} vs plain: {e}")
+    err = float((got - want).abs().max())
+    err64 = float((got - exact).abs().max())
+    plain64 = float((want - exact).abs().max())
+    rows = int((got != 0).any(dim=1).sum())
+    print(f"segsum_probe {name}: within rtol 1e-5 / atol 1e-5 x max |{top:.4g}|, "
+          f"bit-identical over two runs, max |kernel - plain| = {err:.3g}; against a "
+          f"float64 sum: kernel {err64:.3g}, plain {plain64:.3g}; {rows} panel rows "
+          f"written, sum {float(got.sum()):.6g}")
+    return dict(max_abs_err=err, err_vs_f64=err64, plain_err_vs_f64=plain64)
 
 
 def time_probe_kernels(probe):
@@ -1087,6 +1238,8 @@ def time_probe_kernels(probe):
             ms=cuda_ms(lambda: sp.segsum_probe(cot, owners, mode), 10),
             plain_ms=cuda_ms(lambda: sp.segsum_probe_plain(cot, owners, mode), 3),
             library_ms=cuda_ms(library, 10),
+            device_us=device_us(lambda: sp.segsum_probe(cot, owners, mode)),
+            library_device_us=device_us(library),
             bound=(pbytes / PEAK_BYTES, p * d / PEAK_F32),
         )
     return out

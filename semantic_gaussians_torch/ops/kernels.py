@@ -13,6 +13,7 @@ path went through the kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -128,6 +129,9 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """The kernel library `name`, built if needed, with each C function's
     argument types set from `signatures` (return type int: a cudaError_t)."""
+    lib = _libs.get(name)
+    if lib is not None:  # the usual case, without the lock
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -139,6 +143,48 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+_NULL = contextlib.nullcontext()
+_one_card = None  # whether this process sees exactly one CUDA device
+
+
+def on_device(dev):
+    """A context in which `dev` is the current CUDA device: nothing to
+    enter where it already is (the usual case, and the cheap one: a
+    wrapper's time on the host is part of a small kernel's cost)."""
+    import torch
+
+    global _one_card
+    if _one_card is None:
+        _one_card = torch.cuda.device_count() == 1
+    if _one_card or torch.cuda.current_device() == dev.index:
+        return _NULL
+    return torch.cuda.device(dev)
+
+
+_SMS: Dict[object, int] = {}
+
+
+def multiprocessors(dev) -> int:
+    """The card's multiprocessor count (asked once a device)."""
+    import torch
+
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
+def current_stream(dev) -> int:
+    """The raw handle of PyTorch's current stream on `dev`, for a kernel
+    launch (the short way where this PyTorch has it: a wrapper's time on the
+    host is part of a small kernel's cost)."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and dev.index is not None:
+        return raw(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

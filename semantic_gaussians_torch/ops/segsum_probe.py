@@ -19,7 +19,14 @@ whose time is the per-chunk cost of a windowed accumulate.
 
 `segsum_probe` launches the CUDA kernels (csrc/segsum_probe.cu) for CUDA
 tensors and runs the plain torch version, `segsum_probe_plain`, for CPU
-tensors. The per-chunk scalars are computed in plain torch outside the
+tensors. The fold kernel is bound by bytes, so a block (one group of
+consecutive chunks a multiprocessor) keeps its accumulator in shared
+memory, streams the chunks through a cp.async ring, sums runs of equal
+owners by walking the rows in order, and writes to device memory only the
+128-row blocks it touched; a second kernel adds the groups' blocks in group
+order. No float atomics: rows in order within a slice of a chunk, slices
+within a chunk, chunks within a group, groups in order. The kernel takes
+1 <= D <= MAX_D (`shared_memory_plan`). The per-chunk scalars are computed in plain torch outside the
 kernel, as the JAX tools compute them outside theirs. Layout: cot is
 [P, D], rows per pair (see ops/segsum.py), the output [PANEL, D].
 """
@@ -37,19 +44,52 @@ WIN = CHUNK + 128  # output window rows per chunk
 PANEL = 4096  # panel rows (a multiple of 128)
 STRIDE = PANEL - WIN
 MODES = ("fold", "window")
-# Chunk groups (blocks) of the first kernel: four per SM of an H100. Each
-# group owns a [PANEL, D] partial panel in scratch memory, so more groups
-# hide more of the fold's load latency but zero and reduce more scratch; on
-# an H100 the time is flat between four and eight per SM and rises outside.
-MAX_GROUPS = 4 * 132
+BLK = 128  # panel rows per accumulator block of the kernel, and per mask bit
+THREADS = 512  # of a block of the fold kernel
+SMEM_BYTES = 232_448  # shared memory a block can use on an H100 (227 KB)
+MAX_D = 27  # widest row whose 8 accumulator blocks and two chunks fit in SMEM_BYTES
 
-# One count per mode; a call launches two kernels (partial panels, reduce)
-# and counts both.
+# One count per mode; a call launches two kernels (fold, reduce) and counts
+# both.
 LAUNCHES = {m: kernels.LaunchCounter(f"segsum_probe_{m}") for m in MODES}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"sgt_segsum_probe": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P)}
+_SIGNATURES = {"sgt_segsum_probe": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _P, _P, _P, _P)}
+
+
+def chunk_groups(n_chunks: int, max_groups: int) -> Tuple[int, int]:
+    """(groups, chunks per group): consecutive chunks are dealt out to at
+    most `max_groups` blocks, every block but the last taking the same
+    number; the last takes what is left (at least one chunk)."""
+    per_block = -(-n_chunks // min(n_chunks, max_groups))
+    return -(-n_chunks // per_block), per_block
+
+
+def shared_memory_plan(d: int) -> Tuple[int, int]:
+    """(stages, acc_blocks) of the fold kernel for rows of `d` floats: how
+    many 512-row chunks of the stream (2 to 4) and how many 128-row blocks
+    of the accumulator (a power of two) a block holds in SMEM_BYTES of
+    shared memory, mirroring the layout of csrc/segsum_probe.cu. As many
+    stages as leave room for an accumulator of 8 blocks: a window (WIN rows
+    at any 128-row offset: 6 blocks) rounded up to a power of two. Raises
+    for d > MAX_D, whose window does not fit beside two chunks."""
+    if 1 <= d <= MAX_D:
+        v = 1 if d % 4 else 4  # channels a walking thread carries
+        want = min(THREADS // (d // v), CHUNK // 8)
+        srows = -(-CHUNK // want)
+        slices = -(-CHUNK // srows)
+        span = srows * d
+        sstride = span if span % 4 else span + ((d + 3) // 4 * 4 - span) % 32
+        stage = ((slices * sstride + 3) // 4 * 4 + CHUNK) * 4
+        fixed = (2 * slices * d + 3 * slices + 4) * 4
+        for stages in (4, 3, 2):
+            blocks = (SMEM_BYTES - fixed - stages * stage) // (BLK * d * 4)
+            if blocks >= 8:
+                return stages, min(1 << (blocks.bit_length() - 1), PANEL // BLK)
+    raise ValueError(f"segsum_probe: D = {d} does not fit a block's shared memory "
+                     f"(the kernel takes 1 <= D <= {MAX_D})")
 
 
 def probe_scalars(owners: torch.Tensor, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,20 +139,24 @@ def segsum_probe_plain(
 
 def _segsum_probe_cuda(cot, owners, mode):
     p, d = _check(cot, owners)
+    if cot.data_ptr() % 16 or owners.data_ptr() % 16:
+        raise ValueError("segsum_probe: cot and owners must be 16-byte aligned")
+    stages, acc_blocks = shared_memory_plan(d)
     base, off = probe_scalars(owners, mode)
     n_chunks = p // CHUNK
-    per_block = -(-n_chunks // min(n_chunks, MAX_GROUPS))
-    groups = -(-n_chunks // per_block)
     dev = cot.device
+    # one group a multiprocessor: a block fills an SM's shared memory
+    groups, per_block = chunk_groups(n_chunks, kernels.multiprocessors(dev))
     partial = torch.empty((groups, PANEL, d), dtype=torch.float32, device=dev)
+    masks = torch.empty(groups, dtype=torch.int32, device=dev)
     out = torch.empty((PANEL, d), dtype=torch.float32, device=dev)
     lib = kernels.load("segsum_probe", _SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with kernels.on_device(dev):
         err = lib.sgt_segsum_probe(
             cot.data_ptr(), owners.data_ptr(), base.data_ptr(),
             None if mode == "fold" else off.data_ptr(), n_chunks, d, WIN, PANEL, groups,
-            per_block, partial.data_ptr(), out.data_ptr(), stream,
+            per_block, stages, acc_blocks, partial.data_ptr(), masks.data_ptr(),
+            out.data_ptr(), kernels.current_stream(dev),
         )
     kernels.check(lib, err, "sgt_segsum_probe")
     LAUNCHES[mode].add(2)

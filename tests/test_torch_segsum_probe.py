@@ -18,24 +18,17 @@ from jax.experimental.pallas import tpu as pltpu
 
 import semantic_gaussians_tpu.ops.segsum as sg
 from semantic_gaussians_torch.ops import segsum_probe as sp
-from semantic_gaussians_torch.tools import exp_panel, exp_panel2, probe_common
+from semantic_gaussians_torch.tools import exp_panel, exp_panel2, summing_cases
 from torch_port_common import np_
 
 D = 16
 
 
 def _data(n_chunks, rows, seed=0, shuffle=False):
-    """The tools' data law at a reduced p: cot (d, p) and step owners."""
-    rng = np.random.default_rng(seed)
-    p = n_chunks * sp.CHUNK
-    cot = rng.normal(size=(D, p)).astype(np.float32)
-    owners = probe_common.make_owners(rng, rows, p)
-    if shuffle:  # columns out of order inside each chunk; chunk heads kept
-        blocks = owners.reshape(n_chunks, sp.CHUNK).copy()
-        for b in blocks:
-            b[1:] = rng.permutation(b[1:])
-        owners = blocks.reshape(-1)
-    return cot, owners
+    """The tools' data law at a reduced p, from the generator that the card
+    run shares: cot as the JAX tools lay it out, (d, p), and step owners."""
+    cot, owners = summing_cases.probe_data(n_chunks, rows, seed, shuffle)
+    return np.ascontiguousarray(cot.T), owners
 
 
 def _definition(cot_dp, owners, mode):
@@ -133,6 +126,56 @@ def test_plain_matches_the_definition(mode, shuffle):
         assert not np_(got32)[sp.WIN:].any()
     else:
         assert np_(got32)[sp.WIN:].any()  # the offsets really move
+
+
+# The adversarial cases that the card run feeds the kernels, sized here for
+# four chunk groups.
+CASES = {c.name: c for c in summing_cases.probe_cases(4)}
+
+
+@pytest.mark.parametrize("mode", sp.MODES)
+@pytest.mark.parametrize("name", list(CASES))
+def test_adversarial_case_matches_the_definition(name, mode):
+    """The wrapper on the CPU (the plain version, float32) against the
+    definition in float64: rtol 1e-5, atol 1e-5 of the largest entry (one
+    entry sums up to 9 x 512 values in `one_owner`)."""
+    case = CASES[name]
+    assert case.cot.shape[0] % sp.CHUNK == 0 and case.cot.shape[1] == D
+    inside = np.diff(case.owners.reshape(-1, sp.CHUNK).astype(np.int64), axis=1)
+    assert bool((inside >= 0).all()) == case.sorted
+    want = _definition(np.ascontiguousarray(case.cot.T), case.owners, mode)
+    got = np_(sp.segsum_probe(torch.from_numpy(case.cot), torch.from_numpy(case.owners), mode))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    assert np.abs(want).max() > 1.0
+
+
+@pytest.mark.parametrize("n_chunks, max_groups, want", [
+    (7168, 132, (131, 55)),  # the tools' full size on an H100: the last group takes 18
+    (9, 4, (3, 3)), (10, 4, (4, 3)), (3, 132, (3, 1)), (1, 1, (1, 1)), (133, 132, (67, 2)),
+])
+def test_chunk_groups_cover_every_chunk(n_chunks, max_groups, want):
+    """Consecutive chunks to at most `max_groups` groups, none of them empty,
+    also where the count does not divide."""
+    groups, per_group = sp.chunk_groups(n_chunks, max_groups)
+    assert (groups, per_group) == want
+    assert groups <= max_groups and (groups - 1) * per_group < n_chunks <= groups * per_group
+
+
+@pytest.mark.parametrize("d", range(1, sp.MAX_D + 2))
+def test_shared_memory_plan_fits_a_block(d):
+    """The kernel's shared memory for rows of d floats: an accumulator of a
+    power of two of 128-row blocks that holds a window at any offset, two to
+    four chunks of the stream, within a block's 227 KB; one D past the
+    widest raises."""
+    if d > sp.MAX_D:
+        with pytest.raises(ValueError, match="does not fit"):
+            sp.shared_memory_plan(d)
+        return
+    stages, acc_blocks = sp.shared_memory_plan(d)
+    assert 2 <= stages <= 4 and acc_blocks & (acc_blocks - 1) == 0
+    assert acc_blocks * sp.BLK >= sp.WIN + sp.BLK and acc_blocks <= sp.PANEL // sp.BLK
+    stream = stages * sp.CHUNK * (d + 1) * 4
+    assert acc_blocks * sp.BLK * d * 4 + stream <= sp.SMEM_BYTES
 
 
 @pytest.mark.parametrize("mode", sp.MODES)
