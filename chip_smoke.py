@@ -22,14 +22,17 @@ and holds each hand-written kernel against its plain PyTorch version:
      probe tools' full shapes, with sorted owners and with owners out of
      order inside every 64th chunk (rtol 1e-5, atol 1e-5 x column max: see
      check_probe_kernels), bit-identical over two runs; both summing
-     kernels on the small adversarial cases of tools/summing_cases.py.
+     kernels on the small adversarial cases of tools/summing_cases.py; both
+     composite kernels on the adversarial cases of tools/composite_cases.py
+     (and their channel scene at C = 768), at the tolerances above.
   3. viewer path: a 100k-Gaussian scene (bench.py's scene law) with 768-dim
      fused features, served over HTTP at 640x480: RGB, Depth, Semantic and
      Relevancy renders, an edit, a reset, then render_chn at C = 768. All
      four launch counts are set to 0 before and read after; the forward
      kernels' must grow.
   4. the tiled renderer against the dense oracle on a small scene.
-  5. viewer times (CUDA events / host clock after warm-up).
+  5. viewer times (CUDA events / host clock after warm-up); every kernel
+     time also as `device_us`, the event time of CUDA-graph replays.
   6. gradients through the tiled path (the kernels) against autograd
      through the dense oracle, 2000 Gaussians at 128x64.
   7. training path: a Blender-layout scene (8 views of the 100k target at
@@ -40,8 +43,10 @@ and holds each hand-written kernel against its plain PyTorch version:
      last step, all four kernels launched, the saved PLY rendered through
      the viewer's ViewerState, and one opacity reset checked.
   8. training times: one train step and its parts, the device-busy share,
-     and the backward kernels' times against their plain versions, bounds
-     and (for the segment sum) index_add_.
+     both composite kernels on the timed training view's binning (checked
+     against the plain versions, timed, and the share of the step's device
+     time each takes), and the backward kernels' times against their plain
+     versions, bounds and (for the segment sum) index_add_.
   9. fusion path: the 100k scene with near-opaque splats as the trained
      model, the training scene's 8 ring views, one 648x484x768 float16
      feature map per view rendered from a per-Gaussian class palette (20
@@ -368,6 +373,7 @@ def main():
     tool_seg = check_tool_segsums(dev)
     probe = check_probe_kernels(dev)
     check_adversarial_cases(dev)
+    check_composite_cases(dev)
 
     # ---------------------------------------------------------------- 3
     from http.server import ThreadingHTTPServer
@@ -425,12 +431,11 @@ def main():
         kernel_entry("composite_bwd", "semantic_gaussians_torch/csrc/composite_bwd.cu",
                      "semantic_gaussians_tpu/ops/composite_pallas.py:450", cb[3],
                      max(d["max_abs_err"] for d in cb.values()), card,
-                     shape="C=3 (RGB training); by_channels has C=768",
-                     by_channels={str(c): dict(ms=d["ms"], plain_ms=d["plain_ms"],
-                                               max_abs_err=d["max_abs_err"],
-                                               bound_ms=max(d["bound"]) * 1e3,
-                                               work=d["work"])
-                                  for c, d in cb.items()}),
+                     shape="C=3 on the viewer's binning; by_channels has C=768; "
+                           "training_view is the timed train view at C=3",
+                     device_us=cb[3]["device_us"],
+                     by_channels={str(c): composite_numbers(d) for c, d in cb.items()},
+                     training_view=step_times["composite"]["composite_bwd"]),
         kernel_entry("segsum", "semantic_gaussians_torch/csrc/segsum.cu",
                      "semantic_gaussians_tpu/ops/segsum.py:81", sg[9],
                      max(d["max_abs_err"] for d in sg.values()), card,
@@ -458,6 +463,9 @@ def main():
     # requests (phase 3), the train CLI (7), the fusion CLI (9), the eval
     # CLI's three runs (10) and the two probe tools (11). `launches` is
     # their sum.
+    for e in kernel_lines:
+        if e["name"] == "composite_fwd":
+            e["training_view"] = step_times["composite"]["composite_fwd"]
     paths = {"viewer": viewer_launches, "train": trained["launches"],
              "fusion": fused["launches"], "eval": evaluated["launches"],
              "tools": tools["launches"]}
@@ -597,21 +605,13 @@ def serve_and_time(base, card, state, cam, arrays, budget, binning, expand_in, c
     used = int(torch.unique(binning.pair_gaussian[:in_pairs]).numel())
     by_c = {}
     for c, case in comp_cases.items():
-        args = case["args"]
-        # bytes: geometry and colour rows of the Gaussians in tile ranges,
-        # their pair ids, tile ranges, the outputs. f32 ops, counted by the
-        # plain version on these inputs: ~18 for each (pixel, pair) whose
-        # alpha a pixel evaluates before it stops, 2C more for each one
-        # that contributes colour.
-        work = case["work"]
-        cops = 18 * work["evaluated"] + 2 * c * work["contributed"]
-        cbytes = (used * (32 + 4 * c) + 4 * in_pairs + 8 * num_tiles
-                  + num_tiles * 512 * 4 * (c + 3))
+        args, work = case["args"], case["work"]
         by_c[c] = dict(
             max_abs_err=case["max_abs_err"],
             ms=cuda_ms(lambda: composite.composite_forward(*args), 20),
             plain_ms=cuda_ms(lambda: composite.composite_forward_plain(*args), 1),
-            bound=(cbytes / PEAK_BYTES, cops / PEAK_F32), work=work,
+            device_us=device_us(lambda: composite.composite_forward(*args)),
+            bound=forward_bound(args, work), work=work,
         )
     # Where a request's time goes: the whole HTTP request, the view render
     # alone (state.render: camera, render, host post-processing) and the
@@ -651,12 +651,9 @@ def serve_and_time(base, card, state, cam, arrays, budget, binning, expand_in, c
                      "semantic_gaussians_tpu/ops/composite_pallas.py:264", by_c[3],
                      max(d["max_abs_err"] for d in by_c.values()), card,
                      shape="C=3 (RGB/Depth requests); by_channels has every C of the "
-                           "viewer path",
-                     by_channels={str(c): dict(ms=d["ms"], plain_ms=d["plain_ms"],
-                                               max_abs_err=d["max_abs_err"],
-                                               bound_ms=max(d["bound"]) * 1e3,
-                                               work=d["work"])
-                                  for c, d in by_c.items()}),
+                           "viewer path; training_view is the timed train view at C=3",
+                     device_us=by_c[3]["device_us"],
+                     by_channels={str(c): composite_numbers(d) for c, d in by_c.items()}),
     ]
 
 
@@ -675,6 +672,48 @@ def kernel_entry(name, source, replaces, r, max_abs_err, card, **extra):
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": r.get("library_ms"), "card": card, **extra,
     }
+
+
+def composite_numbers(d):
+    """One width's numbers of a composite kernel for the kernels line."""
+    return dict(ms=d["ms"], plain_ms=d["plain_ms"], device_us=d["device_us"],
+                max_abs_err=d["max_abs_err"], bound_ms=max(d["bound"]) * 1e3, work=d["work"])
+
+
+def forward_bound(args, work):
+    """(bytes s, ops s) of the forward composite on `args`. Bytes: geometry
+    and colour rows of the Gaussians in tile ranges, their pair ids, tile
+    ranges, the outputs. f32 ops, counted by the plain version on these
+    inputs: ~18 for each (pixel, pair) whose alpha a pixel evaluates before
+    it stops, 2C more for each one that contributes colour."""
+    import torch
+
+    colors, pair_gaussian, tile_count = args[1], args[2], args[4]
+    c, nt = colors.shape[1], tile_count.numel()
+    in_pairs = int(tile_count.sum())
+    used = int(torch.unique(pair_gaussian[:in_pairs]).numel())
+    cops = 18 * work["evaluated"] + 2 * c * work["contributed"]
+    cbytes = used * (32 + 4 * c) + 4 * in_pairs + 8 * nt + nt * 512 * 4 * (c + 3)
+    return cbytes / PEAK_BYTES, cops / PEAK_F32
+
+
+def backward_bound(args, work):
+    """(bytes s, ops s) of the composite backward on `args`. Bytes:
+    geometry and colour rows of the Gaussians in tile ranges, their pair
+    ids, tile ranges, the upstream gradient, final_T and n_contrib in; one
+    (6 + C)-float row per pair in a tile range out. f32 ops, counted by the
+    plain version on these inputs: ~18 per alpha up to each pixel's
+    n_contrib, 20 + 4C per contributing event."""
+    import torch
+
+    colors, pair_gaussian, tile_count = args[1], args[2], args[4]
+    c, nt = colors.shape[1], tile_count.numel()
+    in_pairs = int(tile_count.sum())
+    used = int(torch.unique(pair_gaussian[:in_pairs]).numel())
+    cbytes = (used * (32 + 4 * c) + 4 * in_pairs + 8 * nt + nt * 512 * 4 * (c + 2)
+              + in_pairs * (6 + c) * 4)
+    cops = 18 * work["evaluated"] + (20 + 4 * c) * work["contributed"]
+    return cbytes / PEAK_BYTES, cops / PEAK_F32
 
 
 def close_enough(got, want, rtol, atol_scale, slack=None):
@@ -975,40 +1014,78 @@ def time_training(scene, dev, card):
              for i, k in enumerate(("render", "loss", "backward", "adam"))}
     prof = profile(step)
     _, metrics = step()
+    comp = time_composite_view(params, alive, cam, bg, budget)
+    # The backward kernel's share of one step's device time (its graph-replay
+    # time over the profiler's device total for a step).
+    if isinstance(prof, dict):
+        prof["composite_bwd_share"] = comp["composite_bwd"]["device_us"] / 1e3 / prof["device_ms"]
+        prof["composite_fwd_share"] = comp["composite_fwd"]["device_us"] / 1e3 / prof["device_ms"]
     print(json.dumps({"card": card, "train_step_ms": step_ms, "train_step_parts_ms": parts,
                       "train_step_profile": prof, "pair_budget": budget,
-                      "num_pairs": int(metrics["num_pairs"])}))
-    return dict(step_ms=step_ms, parts=parts, profile=prof)
+                      "num_pairs": int(metrics["num_pairs"]), "composite_on_train_view": comp}))
+    return dict(step_ms=step_ms, parts=parts, profile=prof, composite=comp)
+
+
+def time_composite_view(params, alive, cam, bg, budget):
+    """Both composite kernels at C = 3 on the binning of one training view
+    (the inputs of the train step's kernels, with a random upstream
+    gradient): checked against the plain versions (check_composite), then
+    timed by CUDA events and `device_us`, with their bounds."""
+    import torch
+
+    from semantic_gaussians_torch.ops import composite
+    from semantic_gaussians_torch.ops.binning import bin_gaussians
+    from semantic_gaussians_torch.ops.projection import project_gaussians
+
+    th, tw = 16, 32
+    grid = (-(-cam.height // th), -(-cam.width // tw))
+    with torch.no_grad():
+        proj = project_gaussians(
+            params.means, params.scales, params.quats, params.opacity[:, 0], cam.world_view,
+            cam.full_proj, cam.camera_center, cam.width, cam.height, cam.tan_half_fov_x,
+            cam.tan_half_fov_y, sh_coeffs=params.sh_coeffs, sh_degree=3, alive=alive)
+        binning = bin_gaussians(proj.means2d, proj.depths, proj.radii_xy, (th, tw), grid,
+                                budget, proj.cull_ellipse)
+        geom = composite.pack_geometry(proj.means2d, proj.conics, proj.opacities, proj.depths)
+        args = (geom, proj.colors.to(torch.float32).contiguous(), binning.pair_gaussian,
+                binning.tile_start, binning.tile_count, bg, grid[1], th, tw)
+        nt = binning.tile_start.numel()
+        g_color = torch.randn((nt, 3, th * tw), generator=torch.Generator(bg.device).manual_seed(
+            SEED + 7), device=bg.device)
+        bargs, fwd_err, bwd_err, fwd_work, bwd_work = check_composite(
+            "composite on the training view", args, g_color)
+    in_pairs = int(binning.tile_count.sum())
+    out = {"pairs": in_pairs, "max_tile_pairs": int(binning.tile_count.max())}
+    for name, fn, plain, a, work, bound, err in (
+            ("composite_fwd", composite.composite_forward, composite.composite_forward_plain,
+             args, fwd_work, forward_bound, fwd_err),
+            ("composite_bwd", composite.composite_backward, composite.composite_backward_plain,
+             bargs, bwd_work, backward_bound, bwd_err)):
+        out[name] = dict(
+            ms=cuda_ms(lambda: fn(*a), 20), plain_ms=cuda_ms(lambda: plain(*a), 1),
+            device_us=device_us(lambda: fn(*a)), bound_ms=max(bound(a, work)) * 1e3,
+            work=work, max_abs_err=err)
+    print(f"composite on the training view ({in_pairs} pairs): kernels within tolerance of "
+          f"the plain versions; forward {out['composite_fwd']['ms']:.4f} ms, backward "
+          f"{out['composite_bwd']['ms']:.4f} ms")
+    return out
 
 
 def time_backward_kernels(bwd, seg):
-    """CUDA-event times of kernel 3 and kernels 4/5 at the main path's
-    shapes, their plain versions, their bounds from this run's data, and
-    index_add_ (the one PyTorch call computing the segment sum)."""
-    import torch
-
+    """CUDA-event times and `device_us` of kernel 3 and kernels 4/5 at the
+    main path's shapes, their plain versions, their bounds from this run's
+    data, and index_add_ (the one PyTorch call computing the segment sum)."""
     from semantic_gaussians_torch.ops import composite
 
     out = {"composite_bwd": {}}
     for c, case in bwd.items():
         args, work = case["args"], case["work"]
-        geom, colors, pair_gaussian, tile_start, tile_count = args[:5]
-        in_pairs = int(tile_count.sum())
-        used = int(torch.unique(pair_gaussian[:in_pairs]).numel())
-        nt = tile_start.numel()
-        # bytes: geometry and colour rows of the Gaussians in tile ranges,
-        # their pair ids, tile ranges, the upstream gradient, final_T and
-        # n_contrib in; one (6 + C)-float row per pair in a tile range out.
-        # f32 ops, counted by the plain version on these inputs: ~18 per
-        # alpha up to each pixel's n_contrib, 20 + 4C per contributing event.
-        cbytes = (used * (32 + 4 * c) + 4 * in_pairs + 8 * nt + nt * 512 * 4 * (c + 2)
-                  + in_pairs * (6 + c) * 4)
-        cops = 18 * work["evaluated"] + (20 + 4 * c) * work["contributed"]
         out["composite_bwd"][c] = dict(
             max_abs_err=case["max_abs_err"], work=work,
             ms=cuda_ms(lambda: composite.composite_backward(*args), 10),
             plain_ms=cuda_ms(lambda: composite.composite_backward_plain(*args), 1),
-            bound=(cbytes / PEAK_BYTES, cops / PEAK_F32),
+            device_us=device_us(lambda: composite.composite_backward(*args), 5),
+            bound=backward_bound(args, work),
         )
     out["segsum"] = time_segsums(seg)
     return out
@@ -1140,6 +1217,62 @@ def check_adversarial_cases(dev):
                         f"{'sorted' if c.sorted else 'unsorted'}) {mode}", cot, owners, mode)
             n += 1
     print(f"adversarial cases: {n} kernel-vs-plain checks passed")
+
+
+def check_composite(name, args, g_color):
+    """Both composite kernels on `args` and the upstream gradient `g_color`
+    against their plain versions: forward n_contrib exact, colour, depth and
+    final_T at rtol 1e-5 / atol 1e-6; backward rows at rtol 1e-4 / atol 1e-5
+    x column max, bit-identical over two runs. Returns the backward's
+    arguments, both largest |kernel - plain| and both plain versions' work
+    counts."""
+    import torch
+
+    from semantic_gaussians_torch.ops import composite
+
+    fwd_work, bwd_work = {}, {}
+    got = composite.composite_forward(*args)
+    want = composite.composite_forward_plain(*args, work=fwd_work)
+    bargs = args[:6] + (g_color, got[2], got[3]) + args[6:]
+    rows, again = composite.composite_backward(*bargs), composite.composite_backward(*bargs)
+    rows_plain = composite.composite_backward_plain(*bargs, work=bwd_work)
+    torch.cuda.synchronize()
+    if not torch.equal(got[3], want[3]):
+        fail(f"{name}: n_contrib differs at {int((got[3] != want[3]).sum())} px")
+    for a, b, out in zip(got[:3], want[:3], ("color", "depth", "final_T")):
+        try:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        except AssertionError as e:
+            fail(f"{name} {out} vs plain: {e}")
+    in_pairs = int(args[4].sum())
+    if not torch.equal(rows[:in_pairs], again[:in_pairs]):
+        fail(f"{name}: two backward runs differ")
+    why = in_pairs and close_enough(rows[:in_pairs], rows_plain[:in_pairs], 1e-4, 1e-5)
+    if why:
+        fail(f"{name} backward vs plain: {why}")
+    fwd_err = max(float((a - b).abs().max()) if a.numel() else 0.0
+                  for a, b in zip(got[:3], want[:3]))
+    bwd_err = float((rows[:in_pairs] - rows_plain[:in_pairs]).abs().max()) if in_pairs else 0.0
+    return bargs, fwd_err, bwd_err, fwd_work, bwd_work
+
+
+def check_composite_cases(dev):
+    """Both composite kernels on the small cases of tools/composite_cases.py
+    (the CPU tests hold the plain versions against the JAX kernel on the
+    same cases), with the channel scene also at C = 768 (check_composite)."""
+    import torch
+
+    from semantic_gaussians_torch.tools.composite_cases import composite_cases
+
+    n = 0
+    for case in composite_cases(extra_channels=(FEAT_DIM,)):
+        args = tuple(torch.from_numpy(x).to(dev) for x in (
+            case.geom, case.colors, case.pair_gaussian, case.tile_start, case.tile_count,
+            case.bg)) + (case.grid_w, case.tile_h, case.tile_w)
+        check_composite(f"composite case {case.name} (C={case.num_channels})", args,
+                        torch.from_numpy(case.g_color).to(dev))
+        n += 1
+    print(f"composite cases: both kernels agree with the plain versions on {n} cases")
 
 
 def check_probe_kernels(dev):
@@ -1424,8 +1557,9 @@ def eval_through_cli(tmpdir, scene, fused, dev, card):
     results, launches = count_launches("eval", run_all, ("expand", "composite_fwd"))
     widths = composite.LAUNCHES.by_key
     print(f"eval CLI: launches {launches}; forward composite by channel width {widths}")
-    for c in (k + 1, FEAT_DIM):
-        if widths.get(c, 0) != len(gts):
+    for c in (k + 1, FEAT_DIM):  # two kernels a call from LIST_MIN_CHANNELS on
+        per_call = 2 if c >= composite.LIST_MIN_CHANNELS else 1
+        if widths.get(c, 0) != per_call * len(gts):
             fail(f"eval launched the forward composite at C={c} {widths.get(c, 0)} times")
     miou = {name: r[0] for name, r in results.items()}
     for name in ("2d_onehot", "2d_features"):

@@ -16,8 +16,9 @@
 // 1-based index of the last contributor), as composite_pallas.py:563-654:
 //   contribute = candidate && j < n_contrib   (the terminating pair and
 //                everything after it are excluded)
-//   T_j = T_{j+1} / (1 - alpha_j)             (division, not log space:
-//                division keeps T exact to rounding, log/exp does not)
+//   T_j = T_{j+1} * (1 / (1 - alpha_j))       (a reciprocal, not log space:
+//                it keeps T to two roundings a step, log/exp does not;
+//                the plain version takes the same two steps)
 //   w = alpha T_j,  q = sum_c color_c ghat_c,  u = sum_{later} w q
 //   dalpha = T_j q - u / (1 - alpha) - T_final (bg . ghat) / (1 - alpha)
 //   dL/dpower = op g dalpha   (the 0.99 clamp is ignored, as in the CUDA
@@ -29,27 +30,48 @@
 // alpha comes from alpha.cuh, the forward kernel's own code, so both take
 // the same candidate decisions.
 //
-// Grid and passes: one block per tile, one thread per pixel (tile_w *
-// tile_h <= 512, a multiple of 32). The block walks its range from the
-// block-wide largest n_contrib down, in batches staged in shared memory
-// (geometry rows gathered through the sorted pair ids, as the forward).
-// Each pair's per-pixel terms are summed over the tile in a fixed order:
-// a warp shuffle tree, then the warps' partials in warp order.
-//  - C <= 8: one pass. Each thread holds its pixel's ghat (4 or 8 channels)
-//    in registers, so q, the geometry terms and dcolor come from one walk.
-//  - C > 8: two kernels. The geometry pass forms q by looping over the C
-//    channels (colours broadcast from L1/L2, ghat coalesced); the colour
-//    pass runs one block per (tile, block of 32 channels) with that slice
-//    of ghat in registers, recomputes alpha and T, and writes dcolor.
+// Design. One block per tile; each thread owns PPT pixels (4 where the
+// tile's pixel count is a multiple of 128: 128 threads for a 16 x 32 tile),
+// pixel k of thread i being k * threads + i, so that slot k of a warp is 32
+// pixels of one tile row. The block walks its range from the block-wide
+// largest n_contrib down, in batches of up to 64 pairs:
+//  - each pair of a batch carries `candidate_rows` (alpha.cuh), computed
+//    once per (tile, pair) when it is staged. A warp evaluates alpha for
+//    slot k only if that slot's row may hold a candidate and some lane's
+//    n_contrib lies past the pair: a skipped event is provably no
+//    candidate, so T, the sums and the row are unchanged bit for bit;
+//  - a thread sums its pixels' terms in registers, and the warp sums the NV
+//    values (9 at C = 3: six geometry sums and exactly C colour sums) with
+//    a transposing butterfly: at each of the 5 shuffle distances a lane
+//    keeps half of its values and trades the other half, so NV values cross
+//    the warp in ~NV + 3 shuffles (12 at NV = 9) instead of 5 NV. The warps'
+//    partials land in shared memory and are summed in warp order when the
+//    batch's rows are written: a fixed order, so the bits repeat;
+//  - the next batch's pair ids, geometry and colours are loaded into
+//    registers before the current batch is walked and stored (with their
+//    row masks) after it, behind the one barrier each batch has; rows of
+//    batch k are written during batch k + 1 (double-buffered partials,
+//    triple-buffered geometry).
+// Passes by width:
+//  - C <= 8: one pass, ghat of exactly CB in {1, 3, 4, 8} channels per
+//    pixel in registers, so q, the geometry terms and dcolor come from one
+//    walk.
+//  - C > 8: two kernels. The geometry pass (one pixel a thread) forms q by
+//    looping over the C channels (colours broadcast from L1/L2, ghat from
+//    L2, per contributing event); the colour pass runs one block per (tile, block of 32
+//    channels), 2 pixels a thread, with that slice of ghat in registers,
+//    recomputes alpha and T, and writes dcolor. q = colours . ghat and
+//    dcolor = w . ghat are matrix products over a batch of pairs, the later
+//    tensor-core work for this width.
 // The row buffer is [P, 6 + C] floats over the pair budget: ~3.8 GB at
-// C = 768 and 1,228,800 slots, which fits the card's 80 GB; sizing it to
-// the pairs actually in tile ranges (a host sync) is later work.
+// C = 768 and 1,228,800 slots, which fits the card's 80 GB.
 //
 // What bounds it on the H100: f32 arithmetic on the CUDA cores, ~18 ops
 // per (pixel, pair) alpha up to each pixel's n_contrib and ~20 + 4 C per
-// contributing one (q, dalpha, six reduction terms, dcolor), plus the
-// per-pair reduction over 512 pixels. Warps with no contributing lane skip
-// their shuffles.
+// contributing one, plus the per-pair reduction (shuffles issue at a
+// quarter of the FMA rate) and, per batch, one barrier; the heaviest tiles
+// (about three times the mean pair count at the centre of the view) set the
+// kernel's end.
 //
 // Rounding: the library is built with -fmad=false (like the forward, so
 // expf and the alpha chain compile identically); products that may fuse
@@ -62,21 +84,67 @@
 
 namespace {
 
+using sgt::FULL;
 using sgt::GEOM;
-constexpr int MAX_WARPS = 16;
 constexpr int NGEO = 6;  // ex, ey, sxx, sxy, syy, sum g dalpha
+constexpr int MAX_BATCH = 64;
 
-__device__ __forceinline__ float warp_sum(float v) {
+// Pairs a batch: as many as keep one buffer of warp partials within 16 KB.
+__host__ __device__ constexpr int batch_for(int nv, int warps) {
+  int b = MAX_BATCH;
+  while (b > 8 && b * nv * warps > 4096) b >>= 1;
+  return b;
+}
+
+// Sums each of the N values of every lane over the warp's 32 lanes. At
+// shuffle distance o a lane keeps the lower half of its values if bit o of
+// its lane is clear, else the upper half, and receives its partner's copy
+// of the half it keeps; once one value is left the lanes add it pairwise.
+// Returns the lane's sum and sets *idx to the value it is (-1 for a lane
+// left holding padding). Each sum is a fixed tree over the lanes.
+template <int N>
+__device__ __forceinline__ float transpose_sum(float (&v)[N], int lane, int* idx) {
+  int base = 0, valid = N;
+  int n = N;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;  // lane 0 holds the warp's sum
+  for (int o = 16; o > 0; o >>= 1) {
+    if (n > 1) {
+      const int h = (n + 1) >> 1;
+      const bool up = (lane & o) != 0;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        if (i < h) {
+          const float lo = v[i];
+          const float hi = h + i < n ? v[h + i] : 0.0f;
+          const float give = up ? lo : hi;
+          const float keep = up ? hi : lo;
+          v[i] = keep + __shfl_xor_sync(FULL, give, o);
+        }
+      }
+      if (up) {
+        base += h;
+        valid -= h;
+      } else {
+        valid = min(valid, h);
+      }
+      n = h;
+    } else {
+      v[0] += __shfl_xor_sync(FULL, v[0], o);
+    }
+  }
+  *idx = valid > 0 ? base : -1;
+  return v[0];
 }
 
 // GEO: geometry columns 0..5 (needs q over all C channels).
 // COL: colour columns 6 + c0 .. 6 + c0 + CB of this block's channel slice.
 // GEO && COL requires C <= CB (one block per tile, ghat in registers).
-template <int CB, bool GEO, bool COL>
-__global__ void __launch_bounds__(512) composite_bwd_kernel(
+// PPT: pixels per thread; the block has tile_w * tile_h / PPT threads.
+// One block an SM is all the bounds ask: given no minimum, ptxas held the
+// C > 8 geometry pass to 64 registers, and its q loop over C channels ran
+// at half the speed it has with 108.
+template <int CB, bool GEO, bool COL, int PPT>
+__global__ void __launch_bounds__(512 / PPT, 1) composite_bwd_kernel(
     const float* __restrict__ geom,             // [N, 8]
     const float* __restrict__ colors,           // [N, C]
     const int32_t* __restrict__ pair_gaussian,  // [P] tile-sorted ids
@@ -89,174 +157,236 @@ __global__ void __launch_bounds__(512) composite_bwd_kernel(
     int C, int grid_w, int tile_w, int tile_h,
     float* __restrict__ out) {                  // [P, 6 + C]
   constexpr int NV = (GEO ? NGEO : 0) + (COL ? CB : 0);
-  constexpr int BATCH = NV <= 16 ? 32 : 16;
+  constexpr int MAXW = 16 / PPT;
+  constexpr int BATCH = batch_for(NV, MAXW);
   constexpr int SC = GEO && COL ? CB : 1;
-  __shared__ float4 s_g0[BATCH];  // mx, my, ca, cb
-  __shared__ float4 s_g1[BATCH];  // cc, op, depth, pad
-  __shared__ int32_t s_id[BATCH];
-  __shared__ float s_col[BATCH][SC];  // colours, for q in the one-pass case
-  __shared__ float s_red[BATCH][NV][MAX_WARPS];
+  __shared__ float4 s_g0[3][BATCH];  // mx, my, ca, cb
+  __shared__ float4 s_g1[3][BATCH];  // cc, op, depth, pad
+  __shared__ uint32_t s_rows[3][BATCH];
+  __shared__ int32_t s_id[3][BATCH];
+  __shared__ float s_col[3][BATCH][SC];  // colours, for q in the one-pass case
+  __shared__ float s_red[2][BATCH][NV][MAXW];
   __shared__ int s_max;
 
   const int t = blockIdx.x;
   const int c0 = blockIdx.y * CB;
   const int nc = COL ? min(CB, C - c0) : 0;
-  const int px = blockDim.x;
-  const int pix = threadIdx.x;
-  const int warp = pix >> 5, lane = pix & 31, nwarps = px >> 5;
+  const int px = tile_w * tile_h;
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nt >> 5;
   const int D = 6 + C;
   const int col_lo = GEO ? 0 : 6 + c0;
   const int ncols = (GEO ? NGEO : 0) + nc;
-  float tox, toy, lx, ly;
-  sgt::tile_frame(t, pix, grid_w, tile_w, tile_h, &tox, &toy, &lx, &ly);
 
   const int start = tile_start[t];
   const int count = tile_count[t];
-  const size_t tp = (size_t)t * px + pix;
-  const float t_final = final_t[tp];
-  const int last = n_contrib[tp];
-
-  float gh[CB];
+  float tox, toy, lx[PPT], ly[PPT];
+  float T[PPT], s[PPT], tb[PPT], gh[PPT][CB];
+  int last[PPT], wlast[PPT];
+  uint32_t wrows[PPT];
+  int warp_max = 0;
 #pragma unroll
-  for (int c = 0; c < CB; ++c) {
-    gh[c] = (COL && c < nc) ? g_color[((size_t)t * C + c0 + c) * px + pix] : 0.0f;
-  }
-  float bgdot = 0.0f;
-  if constexpr (GEO) {
-    for (int c = 0; c < C; ++c) {
-      bgdot = fmaf(bg[c], g_color[((size_t)t * C + c) * px + pix], bgdot);
+  for (int k = 0; k < PPT; ++k) {
+    const int pix = k * nt + tid;
+    sgt::tile_frame(t, pix, grid_w, tile_w, tile_h, &tox, &toy, &lx[k], &ly[k]);
+    const size_t tp = (size_t)t * px + pix;
+    T[k] = final_t[tp];
+    s[k] = 0.0f;  // sum of w q over the pixel's later contributors
+    last[k] = n_contrib[tp];
+    wlast[k] = __reduce_max_sync(FULL, last[k]);
+    warp_max = max(warp_max, wlast[k]);
+    wrows[k] = sgt::pixel_rows(k * nt + warp * 32, 32, tile_w);
+#pragma unroll
+    for (int c = 0; c < CB; ++c) {
+      gh[k][c] = (COL && c < nc) ? g_color[((size_t)t * C + c0 + c) * px + pix] : 0.0f;
     }
+    float bgdot = 0.0f;
+    if constexpr (GEO) {
+      for (int c = 0; c < C; ++c) {
+        bgdot = fmaf(bg[c], g_color[((size_t)t * C + c) * px + pix], bgdot);
+      }
+    }
+    tb[k] = __fmul_rn(T[k], bgdot);
   }
 
-  if (pix == 0) s_max = 0;
+  if (tid == 0) s_max = 0;
   __syncthreads();
-  atomicMax(&s_max, last);
+  if (lane == 0) atomicMax(&s_max, warp_max);
   __syncthreads();
   const int max_last = min(s_max, count);
 
   // Slots after every pixel's last contributor hold no gradient.
-  for (int k = pix; k < (count - max_last) * ncols; k += px) {
+  for (int k = tid; k < (count - max_last) * ncols; k += nt) {
     out[(size_t)(start + max_last + k / ncols) * D + col_lo + k % ncols] = 0.0f;
   }
 
-  float T = t_final;
-  float s = 0.0f;  // sum of w q over the pixel's later contributors
-  for (int end = max_last; end > 0; end -= BATCH) {
-    const int b0 = max(0, end - BATCH);
-    const int nb = end - b0;
-    __syncthreads();  // the previous batch's rows are written
-    for (int k = pix; k < nb; k += px) {
-      const int g = pair_gaussian[start + b0 + k];
-      const float4* row = reinterpret_cast<const float4*>(geom + (size_t)g * GEOM);
-      s_id[k] = g;
-      s_g0[k] = row[0];
-      s_g1[k] = row[1];
-    }
-    if constexpr (GEO && COL) {
-      __syncthreads();
-      for (int k = pix; k < nb * SC; k += px) {
-        const int i = k / SC, c = k % SC;
-        s_col[i][c] = c < C ? colors[(size_t)s_id[i] * C + c] : 0.0f;
+  // Batch b covers slots [lo(b), lo(b) + size(b)), walked from the top;
+  // each thread stages at most one pair of a batch.
+  const int bs = min(BATCH, nt);
+  const int nbatch = (max_last + bs - 1) / bs;
+  auto lo = [&](int b) { return max(0, max_last - (b + 1) * bs); };
+  auto size = [&](int b) { return max_last - b * bs - lo(b); };
+
+  // Registers that carry the next batch's pair (thread i stages pair i).
+  int r_id = 0, r_next = 0;
+  float4 r_g0 = make_float4(0.f, 0.f, 0.f, 0.f), r_g1 = r_g0;
+  float r_col[SC];
+  auto fetch = [&](int b) {  // loads of batch b's pair; r_next holds its id
+    if (b < nbatch && tid < size(b)) {
+      r_id = r_next;
+      const float4* row = reinterpret_cast<const float4*>(geom + (size_t)r_id * GEOM);
+      r_g0 = row[0];
+      r_g1 = row[1];
+      if constexpr (GEO && COL) {
+#pragma unroll
+        for (int c = 0; c < SC; ++c) r_col[c] = c < C ? colors[(size_t)r_id * C + c] : 0.0f;
       }
     }
-    __syncthreads();
-    for (int i = nb - 1; i >= 0; --i) {
+    if (b + 1 < nbatch && tid < size(b + 1)) r_next = pair_gaussian[start + lo(b + 1) + tid];
+  };
+  auto store = [&](int b) {  // the fetched pair into slot b % 3
+    if (b < nbatch && tid < size(b)) {
+      const int sl = b % 3;
+      s_g0[sl][tid] = r_g0;
+      s_g1[sl][tid] = r_g1;
+      s_id[sl][tid] = r_id;
+      s_rows[sl][tid] = sgt::candidate_rows(r_g0, r_g1, toy, tile_h, 0, tile_h - 1);
+      if constexpr (GEO && COL) {
+#pragma unroll
+        for (int c = 0; c < SC; ++c) s_col[sl][tid][c] = r_col[c];
+      }
+    }
+  };
+  // The warps' partials of batch b, summed in warp order, as output rows.
+  auto write_rows = [&](int b) {
+    const int sl = b % 3, rb = b & 1, b0 = lo(b);
+    for (int e = tid; e < size(b) * ncols; e += nt) {
+      const int i = e / ncols, m = e % ncols;
+      auto red = [&](int v) {
+        float r = 0.0f;
+        for (int w = 0; w < nwarps; ++w) r += s_red[rb][i][v][w];
+        return r;
+      };
+      float val;
+      if (GEO && m < NGEO) {
+        const float ca = s_g0[sl][i].z, cb = s_g0[sl][i].w, cc = s_g1[sl][i].x;
+        switch (m) {
+          case 0: val = -(__fmul_rn(ca, red(0)) + __fmul_rn(cb, red(1))); break;
+          case 1: val = -(__fmul_rn(cc, red(1)) + __fmul_rn(cb, red(0))); break;
+          case 2: val = -0.5f * red(2); break;
+          case 3: val = -red(3); break;
+          case 4: val = -0.5f * red(4); break;
+          default: val = red(5); break;
+        }
+      } else {
+        val = red(m);
+      }
+      out[(size_t)(start + b0 + i) * D + col_lo + m] = val;
+    }
+  };
+
+  if (nbatch > 0 && tid < size(0)) r_next = pair_gaussian[start + lo(0) + tid];
+  fetch(0);
+  store(0);
+  for (int b = 0; b < nbatch; ++b) {
+    __syncthreads();  // batch b staged; partials of b - 1 complete
+    if (b > 0) write_rows(b - 1);
+    fetch(b + 1);
+    const int sl = b % 3, rb = b & 1, b0 = lo(b);
+    for (int i = size(b) - 1; i >= 0; --i) {
+      const int j = b0 + i;
+      const uint32_t rows = s_rows[sl][i];
       float v[NV];
 #pragma unroll
-      for (int k = 0; k < NV; ++k) v[k] = 0.0f;
+      for (int m = 0; m < NV; ++m) v[m] = 0.0f;
       bool hit = false;
-      if (b0 + i < last) {
-        const float4 g0 = s_g0[i], g1 = s_g1[i];
-        const sgt::Alpha a = sgt::alpha_terms(g0, g1, tox, toy, lx, ly);
-        if (a.candidate) {
+      bool live[PPT], any = false;  // warp-uniform
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        live[k] = (rows & wrows[k]) != 0u && j < wlast[k];
+        any |= live[k];
+      }
+      if (any) {
+        const float4 g0 = s_g0[sl][i], g1 = s_g1[sl][i];
+        sgt::Alpha a[PPT];  // independent of T: all slots at once
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) a[k] = sgt::alpha_terms(g0, g1, tox, toy, lx[k], ly[k]);
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          if (!(live[k] && a[k].candidate && j < last[k])) continue;
           hit = true;
-          const float om = __fsub_rn(1.0f, a.alpha);
-          T = __fdiv_rn(T, om);  // transmittance before this pair
-          const float w = __fmul_rn(a.alpha, T);
+          const float inv = __frcp_rn(__fsub_rn(1.0f, a[k].alpha));
+          T[k] = __fmul_rn(T[k], inv);  // transmittance before this pair
+          const float w = __fmul_rn(a[k].alpha, T[k]);
           if constexpr (GEO) {
             float q = 0.0f;
             if constexpr (COL) {
 #pragma unroll
-              for (int c = 0; c < CB; ++c) q = fmaf(s_col[i][c], gh[c], q);
+              for (int c = 0; c < CB; ++c) q = fmaf(s_col[sl][i][c], gh[k][c], q);
             } else {
-              const float* col = colors + (size_t)s_id[i] * C;
-              for (int c = 0; c < C; ++c) {
-                q = fmaf(col[c], g_color[((size_t)t * C + c) * px + pix], q);
-              }
+              const float* col = colors + (size_t)s_id[sl][i] * C;
+              const float* gc = g_color + (size_t)t * C * px + k * nt + tid;
+              for (int c = 0; c < C; ++c) q = fmaf(col[c], gc[(size_t)c * px], q);
             }
-            const float inv = __fdiv_rn(1.0f, om);
-            const float dalpha = __fmul_rn(T, q) - __fmul_rn(s, inv) -
-                                 __fmul_rn(__fmul_rn(t_final, bgdot), inv);
-            s = fmaf(w, q, s);
-            const float gd = __fmul_rn(a.g, dalpha);
+            const float dalpha = __fmul_rn(T[k], q) - __fmul_rn(s[k], inv) -
+                                 __fmul_rn(tb[k], inv);
+            s[k] = fmaf(w, q, s[k]);
+            const float gd = __fmul_rn(a[k].g, dalpha);
             const float dldp = __fmul_rn(g1.y, gd);
-            const float t1 = __fmul_rn(dldp, a.dx);
-            const float t2 = __fmul_rn(dldp, a.dy);
-            v[0] = t1;
-            v[1] = t2;
-            v[2] = __fmul_rn(t1, a.dx);
-            v[3] = __fmul_rn(t1, a.dy);
-            v[4] = __fmul_rn(t2, a.dy);
-            v[5] = gd;
+            const float t1 = __fmul_rn(dldp, a[k].dx);
+            const float t2 = __fmul_rn(dldp, a[k].dy);
+            v[0] += t1;
+            v[1] += t2;
+            v[2] += __fmul_rn(t1, a[k].dx);
+            v[3] += __fmul_rn(t1, a[k].dy);
+            v[4] += __fmul_rn(t2, a[k].dy);
+            v[5] += gd;
           }
           if constexpr (COL) {
 #pragma unroll
-            for (int c = 0; c < CB; ++c) v[(GEO ? NGEO : 0) + c] = __fmul_rn(w, gh[c]);
+            for (int c = 0; c < CB; ++c) v[(GEO ? NGEO : 0) + c] += __fmul_rn(w, gh[k][c]);
           }
         }
       }
-      if (__any_sync(0xffffffffu, hit)) {
-#pragma unroll
-        for (int k = 0; k < NV; ++k) {
-          const float r = warp_sum(v[k]);
-          if (lane == 0) s_red[i][k][warp] = r;
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < NV; ++k) s_red[i][k][warp] = 0.0f;
+      if (__any_sync(FULL, hit)) {
+        int idx;
+        const float r = transpose_sum<NV>(v, lane, &idx);
+        if (idx >= 0) s_red[rb][i][idx][warp] = r;
+      } else if (lane < NV) {
+        s_red[rb][i][lane][warp] = 0.0f;
       }
     }
-    __syncthreads();
-    // The warps' partials, summed in warp order.
-    for (int k = pix; k < nb * NV; k += px) {
-      const int i = k / NV, m = k % NV;
-      float r = 0.0f;
-      for (int wi = 0; wi < nwarps; ++wi) r += s_red[i][m][wi];
-      s_red[i][m][0] = r;
-    }
-    __syncthreads();
-    for (int k = pix; k < nb * ncols; k += px) {
-      const int i = k / ncols, m = k % ncols;
-      float val;
-      if (GEO && m < NGEO) {
-        const float ex = s_red[i][0][0], ey = s_red[i][1][0];
-        const float ca = s_g0[i].z, cb = s_g0[i].w, cc = s_g1[i].x;
-        switch (m) {
-          case 0: val = -(__fmul_rn(ca, ex) + __fmul_rn(cb, ey)); break;
-          case 1: val = -(__fmul_rn(cc, ey) + __fmul_rn(cb, ex)); break;
-          case 2: val = -0.5f * s_red[i][2][0]; break;
-          case 3: val = -s_red[i][3][0]; break;
-          case 4: val = -0.5f * s_red[i][4][0]; break;
-          default: val = s_red[i][5][0]; break;
-        }
-      } else {
-        val = s_red[i][m][0];
-      }
-      out[(size_t)(start + b0 + i) * D + col_lo + m] = val;
-    }
+    store(b + 1);
   }
+  __syncthreads();
+  if (nbatch > 0) write_rows(nbatch - 1);
 }
 
-template <int CB, bool GEO, bool COL>
-cudaError_t launch(dim3 grid, int threads, const float* geom, const float* colors,
+template <int CB, bool GEO, bool COL, int PPT>
+cudaError_t launch(dim3 grid, int px, const float* geom, const float* colors,
                    const int32_t* pg, const int32_t* ts, const int32_t* tc,
                    const float* bg, const float* g_color, const float* final_t,
                    const int32_t* n_contrib, int C, int grid_w, int tile_w,
                    int tile_h, float* out, cudaStream_t stream) {
-  composite_bwd_kernel<CB, GEO, COL><<<grid, threads, 0, stream>>>(
+  composite_bwd_kernel<CB, GEO, COL, PPT><<<grid, px / PPT, 0, stream>>>(
       geom, colors, pg, ts, tc, bg, g_color, final_t, n_contrib, C, grid_w,
       tile_w, tile_h, out);
   return cudaGetLastError();
+}
+
+// The one-pass kernel for C <= 8, sized to C (no padding channel at C = 3).
+template <int PPT>
+cudaError_t launch_one_pass(int num_tiles, int px, const float* g, const float* col,
+                            const int32_t* pg, const int32_t* ts, const int32_t* tc,
+                            const float* b, const float* gc, const float* ft,
+                            const int32_t* nct, int C, int grid_w, int tile_w, int tile_h,
+                            float* o, cudaStream_t s) {
+  const dim3 grid(num_tiles);
+  if (C <= 1) return launch<1, true, true, PPT>(grid, px, g, col, pg, ts, tc, b, gc, ft, nct, C, grid_w, tile_w, tile_h, o, s);
+  if (C <= 3) return launch<3, true, true, PPT>(grid, px, g, col, pg, ts, tc, b, gc, ft, nct, C, grid_w, tile_w, tile_h, o, s);
+  if (C <= 4) return launch<4, true, true, PPT>(grid, px, g, col, pg, ts, tc, b, gc, ft, nct, C, grid_w, tile_w, tile_h, o, s);
+  return launch<8, true, true, PPT>(grid, px, g, col, pg, ts, tc, b, gc, ft, nct, C, grid_w, tile_w, tile_h, o, s);
 }
 
 }  // namespace
@@ -291,26 +421,25 @@ int sgt_composite_bwd(const void* geom, const void* colors,
   auto nct = static_cast<const int32_t*>(n_contrib);
   auto o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  const int threads = tile_w * tile_h;
+  const int px = tile_w * tile_h;
   cudaError_t e;
-  if (C <= 4) {
-    e = launch<4, true, true>(dim3(num_tiles), threads, g, col, pg, ts, tc, b, gc, ft,
-                              nct, C, grid_w, tile_w, tile_h, o, s);
+  if (C <= 8) {
+    e = px % 128 == 0
+            ? launch_one_pass<4>(num_tiles, px, g, col, pg, ts, tc, b, gc, ft, nct, C, grid_w, tile_w, tile_h, o, s)
+            : launch_one_pass<1>(num_tiles, px, g, col, pg, ts, tc, b, gc, ft, nct, C, grid_w, tile_w, tile_h, o, s);
     *launched = e == cudaSuccess;
-  } else if (C <= 8) {
-    e = launch<8, true, true>(dim3(num_tiles), threads, g, col, pg, ts, tc, b, gc, ft,
-                              nct, C, grid_w, tile_w, tile_h, o, s);
-    *launched = e == cudaSuccess;
-  } else {
-    e = launch<32, true, false>(dim3(num_tiles), threads, g, col, pg, ts, tc, b, gc,
-                                ft, nct, C, grid_w, tile_w, tile_h, o, s);
-    if (e == cudaSuccess) {
-      *launched = 1;
-      e = launch<32, false, true>(dim3(num_tiles, (C + 31) / 32), threads, g, col, pg,
-                                  ts, tc, b, gc, ft, nct, C, grid_w, tile_w, tile_h, o, s);
-      *launched += e == cudaSuccess;
-    }
+    return static_cast<int>(e);
   }
+  const dim3 tiles(num_tiles), slices(num_tiles, (C + 31) / 32);
+  // One pixel a thread: the q loop over C channels is a long chain, which
+  // sixteen warps a tile hide better than four.
+  e = launch<1, true, false, 1>(tiles, px, g, col, pg, ts, tc, b, gc, ft, nct, C, grid_w, tile_w, tile_h, o, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *launched = 1;
+  e = px % 64 == 0
+          ? launch<32, false, true, 2>(slices, px, g, col, pg, ts, tc, b, gc, ft, nct, C, grid_w, tile_w, tile_h, o, s)
+          : launch<32, false, true, 1>(slices, px, g, col, pg, ts, tc, b, gc, ft, nct, C, grid_w, tile_w, tile_h, o, s);
+  *launched += e == cudaSuccess;
   return static_cast<int>(e);
 }
 

@@ -1,10 +1,12 @@
 """Tiled front-to-back alpha compositing, forward and backward.
 
 Port of semantic_gaussians_tpu.ops.composite_pallas (`composite_pairs` and
-its VJP). `composite_forward` launches the CUDA kernel
-(csrc/composite_fwd.cu) for CUDA tensors and runs the plain torch version,
-`composite_forward_plain`, for CPU tensors; `composite_backward` does the
-same with csrc/composite_bwd.cu and `composite_backward_plain`.
+its VJP). `composite_forward` launches the CUDA kernels
+(csrc/composite_fwd.cu: one kernel up to 32 channels, a walk and a
+contraction from LIST_MIN_CHANNELS on) for CUDA tensors and runs the plain
+torch version, `composite_forward_plain`, for CPU tensors;
+`composite_backward` does the same with csrc/composite_bwd.cu and
+`composite_backward_plain`.
 `CompositeFunction` is the autograd Function around the two: its forward
 is the forward kernel (it saves final_T and n_contrib), its backward the
 backward kernel, whose per-pair rows a caller-given function reduces to
@@ -21,7 +23,9 @@ op exp(power)) with tile-centred dx/dy; a pair is skipped when power > 0
 or alpha < 1/255; a pixel stops when T (1 - alpha) < 1e-4, that pair
 excluded; out = sum w color + T bg; median depth at the T = 0.5 crossing
 (init 15.0); n_contrib = 1-based index in the tile range of the last
-contributor.
+contributor. The backward steps T back as T * (1 / (1 - alpha)), one
+reciprocal that its dalpha reuses, in the kernel and the plain version
+alike.
 """
 from __future__ import annotations
 
@@ -48,8 +52,12 @@ BWD_LAUNCHES = kernels.LaunchCounter("composite_bwd")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "sgt_composite_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "sgt_composite_fwd": (_P,) * 6 + (_I,) * 5 + (_P,) * 8 + (ctypes.POINTER(_I),),
 }
+# From this width the forward is two kernels, a walk that lists each strip's
+# contributing pairs and a contraction (the kernel takes the lists as the
+# switch); the one-kernel path holds at most 32 channels in registers.
+LIST_MIN_CHANNELS = 33
 _BWD_SIGNATURES = {
     "sgt_composite_bwd": (_P,) * 9 + (_I,) * 5 + (_P, _P, ctypes.POINTER(_I)),
 }
@@ -204,7 +212,21 @@ def _composite_forward_cuda(
     depth = torch.empty((nt, px), dtype=torch.float32, device=dev)
     final_t = torch.empty((nt, px), dtype=torch.float32, device=dev)
     n_contrib = torch.empty((nt, px), dtype=torch.int32, device=dev)
+    # From LIST_MIN_CHANNELS on, the walk lists every strip's (32 pixels')
+    # contributing pairs with their weights for the contraction kernel: at
+    # most a tile's pair count per strip, so P * PX / 32 entries (at the
+    # pair budget of a 640x480 view and C = 768: 2.5 GB, reused by the
+    # caching allocator).
+    if num_ch >= LIST_MIN_CHANNELS:
+        entries = pair_gaussian.shape[0] * (px // 32)
+        list_w = torch.empty((entries, 32), dtype=torch.float32, device=dev)
+        list_id = torch.empty((entries,), dtype=torch.int32, device=dev)
+        list_n = torch.empty((nt * (px // 32),), dtype=torch.int32, device=dev)
+        lists = (list_w.data_ptr(), list_id.data_ptr(), list_n.data_ptr())
+    else:
+        lists = (None, None, None)
     lib = kernels.load("composite_fwd", _SIGNATURES)
+    launched = _I(0)  # 2 for C >= LIST_MIN_CHANNELS: the walk, then the contraction
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sgt_composite_fwd(
@@ -212,10 +234,10 @@ def _composite_forward_cuda(
             tile_start.data_ptr(), tile_count.data_ptr(), bg.data_ptr(),
             num_ch, nt, grid_w, tile_w, tile_h,
             color.data_ptr(), depth.data_ptr(), final_t.data_ptr(),
-            n_contrib.data_ptr(), stream,
+            n_contrib.data_ptr(), *lists, stream, ctypes.byref(launched),
         )
+    LAUNCHES.add(launched.value, key=num_ch)
     kernels.check(lib, err, "sgt_composite_fwd")
-    LAUNCHES.add(key=num_ch)
     return color, depth, final_t, n_contrib
 
 
@@ -278,10 +300,10 @@ def composite_backward_plain(
         dx, dy, power, gv, alpha = _alpha_terms(r, tox, toy, lx, ly)
         contrib = (j < last) & (power <= 0.0) & (alpha >= ALPHA_CUTOFF) & has[:, None]
         om = 1.0 - alpha
-        T = torch.where(contrib, T / om, T)
+        inv = 1.0 / om
+        T = torch.where(contrib, T * inv, T)  # the kernel's order: one division
         w = torch.where(contrib, alpha * T, zero)
         q = torch.bmm(colors[g][:, None, :], g_color)[:, 0]  # [nt, px]
-        inv = 1.0 / om
         dalpha = torch.where(contrib, T * q - s * inv - tbg * inv, zero)
         s = torch.where(contrib, s + w * q, s)
         gd = gv * dalpha
