@@ -10,10 +10,12 @@ and holds each hand-written kernel against its plain PyTorch version:
      five kernel sources are built from csrc/ (one nvcc per source, all at
      once).
   2. kernels vs plain versions on the card, at the main paths' shapes:
-     pair expand (cull on and off, bit for bit); the forward composite at
-     C = 1, 3, 5, 21 and 768 (n_contrib exact; color, depth and final_T at
-     rtol 1e-5, atol 1e-6); the composite backward at C = 3 and 768 with a
-     random upstream gradient (rows at rtol 1e-4, atol 1e-5 x column max)
+     pair expand at the viewer's shape (cull on and off, bit for bit) and
+     on the adversarial cases of tools/expand_cases.py; the forward
+     composite at C = 1, 3, 5, 21 and 768 (n_contrib exact; color, depth
+     and final_T at rtol 1e-5, atol 1e-6); the composite backward at C = 3
+     and 768 with a random upstream gradient (rows at rtol 1e-4, atol 1e-5
+     x column max)
      and the segment sum on its rows at D = 9 and 774 (rtol 1e-5, atol
      1e-6 x column max), each of the two bit-identical over two runs; the
      segment sum at the probe tools' four shapes (V0, V4, both resident
@@ -62,6 +64,12 @@ and holds each hand-written kernel against its plain PyTorch version:
      mIoU = 1.
  11. probe tools: `tools.exp_panel` and `tools.exp_panel2` at full size.
  12. fusion, eval and probe times.
+ 13. expand at three shapes, cull on and off: the viewer (phase 2's), the
+     timed training view and bench.py's scene law at 1M Gaussians (capacity
+     1,003,520, pair budget 12,042,240; binning only, nothing rendered):
+     bit for bit against the plain version, then CUDA events over
+     back-to-back calls, `device_us`, the host's enqueue time of one call,
+     the plain version and bin_gaussians.
 Every number is stamped with the card's name and power limit.
 
 Prints one JSON line of per-kernel numbers, the card's name and power limit,
@@ -99,6 +107,7 @@ QUERY = f"w={WIDTH}&h={HEIGHT}&fov=1.1&pose={POSE}"
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and f32 CUDA-core flop/s.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+SLEEP_CYCLES = 4_000_000  # ~2 ms at the H100's 1.98 GHz boost clock (device_us)
 
 
 def fail(msg):
@@ -165,13 +174,17 @@ def host_ms(fn, reps):
     return statistics.median(times)
 
 
-def device_us(fn, reps=20):
-    """Device time of one call of fn in microseconds: fn's kernels are
-    captured once into a CUDA graph, and `reps` replays of the graph are
-    timed by CUDA events. Unlike an event time over back-to-back calls of
-    fn itself, this leaves out the time the host takes to launch each
-    kernel (a replay is one launch), which decides the time of kernels of a
-    few tens of microseconds."""
+def device_us(fn, reps=20, calls=1):
+    """Device time of one call of fn in microseconds: `calls` calls of fn
+    are captured once into a CUDA graph, and `reps` replays of the graph
+    are timed by CUDA events (divided by `calls`). Unlike an event time over
+    back-to-back calls of fn itself, this leaves out the time the host
+    takes to launch each kernel (a replay is one launch), which decides the
+    time of kernels of a few tens of microseconds; more calls a graph also
+    spread the replay's own launch over them. The replays queue behind
+    ~2 ms of device sleep, so that the host has enqueued them all before
+    the first runs: a replay of a graph of one ~10 us call is launched no
+    faster than it runs, and would otherwise time the host."""
     import torch
 
     side = torch.cuda.Stream()
@@ -182,8 +195,35 @@ def device_us(fn, reps=20):
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / (reps * calls)
+
+
+def enqueue_us(fn, calls=200):
+    """Median host-clock time of one call of fn in microseconds, over
+    `calls` calls with no synchronize between them: the host's cost of
+    enqueueing the call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
         fn()
-    return cuda_ms(graph.replay, reps) * 1e3
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def profile(fn):
@@ -215,10 +255,12 @@ def profile(fn):
     }
 
 
-def make_scene(np, n):
+def make_scene(np, n, feats=True):
     """bench.py's synthetic scene law (seed 0): a Gaussian cloud 4 units in
     front of the camera, uniform colours as SH DC (degree 3, higher bands
-    zero), density-scaled log-scales, identity rotations."""
+    zero), density-scaled log-scales, identity rotations; and, drawn last
+    (so that `feats=False` leaves the rest as it is), FEAT_DIM-dim random
+    features (None without them)."""
     rng = np.random.default_rng(SEED)
     pts = (rng.normal(size=(n, 3)) * np.array([1.6, 1.1, 1.0]) + np.array([0, 0, 4])).astype(np.float32)
     cols = rng.uniform(size=(n, 3)).astype(np.float32)
@@ -235,8 +277,9 @@ def make_scene(np, n):
         quats=quats,
         opacity_logits=opacity_logits,
     )
-    feats = rng.normal(size=(n, FEAT_DIM)).astype(np.float32)
-    return arrays, feats
+    if not feats:
+        return arrays, None
+    return arrays, rng.normal(size=(n, FEAT_DIM)).astype(np.float32)
 
 
 def main():
@@ -249,19 +292,14 @@ def main():
         fail(f"no semantic_gaussians_torch/ package beside {Path(__file__).name}: run from a checkout")
     sys.path.insert(0, str(ROOT))
 
-    from semantic_gaussians_torch.cli.view_server import (
-        ViewerState, camera_from_query, make_handler,
-    )
+    from semantic_gaussians_torch.cli.view_server import ViewerState, make_handler
     from semantic_gaussians_torch.config.config import default_config_dir, load_config
     from semantic_gaussians_torch.core.gaussians import params_from_numpy
     from semantic_gaussians_torch.io.ply import save_gaussian_ply
     from semantic_gaussians_torch.ops import composite, expand, kernels
-    from semantic_gaussians_torch.ops.binning import (
-        bin_gaussians, default_pair_budget, depth_sorted_rects,
-    )
+    from semantic_gaussians_torch.ops.binning import bin_gaussians, default_pair_budget
     from semantic_gaussians_torch.ops.projection import project_gaussians
     from semantic_gaussians_torch.pipelines.fusion import save_fused_features
-    from semantic_gaussians_torch.renderer import render, render_chn
 
     # ---------------------------------------------------------------- 1
     card = card_line()
@@ -272,7 +310,7 @@ def main():
     build_secs = kernels.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s: {build_secs}")
     for name, log in kernels.BUILD_LOG.items():
-        regs = [l.strip() for l in log.splitlines() if "registers" in l]
+        regs = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
         print(f"  {name}: {regs}")
 
     # ---------------------------------------------------------------- scene
@@ -291,7 +329,7 @@ def main():
     )
     state = ViewerState(cfg)  # the server's own load path: PLY + .pt onto cuda
     params, alive = state.params, state.alive
-    cam = camera_from_query({k: [v] for k, v in (p.split("=") for p in QUERY.split("&"))}).to(dev)
+    cam = viewer_camera(dev)
 
     # The main path's kernel inputs, built as the renderer builds them.
     proj = project_gaussians(
@@ -302,31 +340,14 @@ def main():
     )
     th, tw = 16, 32
     grid = (-(-HEIGHT // th), -(-WIDTH // tw))
-    num_tiles = grid[0] * grid[1]
     n = params.capacity
     budget = default_pair_budget(n)
 
     # ---------------------------------------------------------------- 2
-    def expand_args(cull):
-        ex = depth_sorted_rects(
-            proj.means2d, proj.depths, proj.radii_xy, (th, tw), grid, budget,
-            proj.cull_ellipse if cull else None,
-        )
-        return ex, (ex.offsets, ex.rect_packed_d, ex.idx_d, ex.cull_d, ex.num_pairs,
-                    ex.num_dense, budget, grid[1], num_tiles, n, tw, th)
-
-    for cull in (True, False):
-        ex, args = expand_args(cull)
-        got = expand.expand_pairs(*args)
-        want = expand.expand_pairs_plain(*args)
-        torch.cuda.synchronize()
-        for a, b, name in zip(got, want, ("tile", "g_key", "gen_owner")):
-            if not torch.equal(a, b):
-                fail(f"expand (cull={cull}) {name}: {int((a != b).sum())} slots differ from the plain version")
-        live = int((got[0] < num_tiles).sum())
-        print(f"expand cull={cull}: bit-identical on {budget} slots; "
-              f"num_pairs={int(ex.num_pairs)} live={live} overflow={int(ex.overflow)}")
-    _, expand_in = expand_args(True)
+    expand_shapes = {"viewer": expand_shape(params, alive, cam)}
+    for cull, sh in expand_shapes["viewer"].items():
+        check_expand(f"viewer cull={cull}", expand, sh["args"])
+    check_expand_cases(dev)
 
     binning = bin_gaussians(
         proj.means2d, proj.depths, proj.radii_xy, (th, tw), grid, budget, proj.cull_ellipse
@@ -384,7 +405,7 @@ def main():
     try:
         viewer_launches, kernel_lines = serve_and_time(
             f"http://127.0.0.1:{httpd.server_address[1]}", card, state, cam, arrays,
-            budget, binning, expand_in, comp_cases,
+            budget, binning, comp_cases,
         )
     finally:
         httpd.shutdown()
@@ -402,6 +423,9 @@ def main():
 
         # ------------------------------------------------------------ 8
         step_times = time_training(trained["scene"], dev, card)
+        _, tcam, tparams, talive = training_view(trained["scene"], dev)
+        expand_shapes["training view"] = expand_shape(tparams, talive, tcam)
+        del tparams, talive
 
         # ------------------------------------------------------------ 9, 10
         fused = fuse_through_cli(Path(train_tmp), trained["scene"], arrays, dev, card)
@@ -410,6 +434,11 @@ def main():
 
     # ---------------------------------------------------------------- 11
     tools = run_probe_tools()
+
+    # ---------------------------------------------------------------- 13
+    expand_shapes["1M"] = million_shape(dev)
+    ex_by_shape = check_and_time_expand(card, expand_shapes)
+    del expand_shapes
 
     kt = time_backward_kernels(bwd, seg)
     kt["segsum_tools"] = time_segsums(tool_seg)
@@ -459,6 +488,14 @@ def main():
                      shape="d=16, p=3,670,016, rows=1,000,000; library is index_add_ on "
                            "the probe's target rows"),
     ]
+    viewer_ex = ex_by_shape["viewer cull=on"]
+    kernel_lines.insert(0, kernel_entry(
+        "expand", "semantic_gaussians_torch/csrc/expand.cu",
+        "semantic_gaussians_tpu/ops/expand.py:121", viewer_ex, 0.0,
+        card, shape="viewer, cull on (every render's binning); by_shape has the viewer, the "
+                    "timed training view and a 1M-Gaussian scene, cull on and off",
+        device_us=viewer_ex["device_us"],
+        by_shape={k: expand_numbers(v) for k, v in ex_by_shape.items()}))
     # Launches, counted from 0 over each main path's run: the viewer's
     # requests (phase 3), the train CLI (7), the fusion CLI (9), the eval
     # CLI's three runs (10) and the two probe tools (11). `launches` is
@@ -480,6 +517,184 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# ------------------------------------------------------------------ expand
+EXPAND_MILLION = 1_000_000  # Gaussians: a Mip-NeRF 360 scene holds 1-6M
+
+
+def viewer_camera(dev):
+    """The viewer requests' camera (QUERY: the bench camera at 640x480)."""
+    from semantic_gaussians_torch.cli.view_server import camera_from_query
+
+    return camera_from_query({k: [v] for k, v in (p.split("=") for p in QUERY.split("&"))}).to(dev)
+
+
+def padded_params(arrays, dev):
+    """(params, alive) of `arrays` padded to the port's capacity granule as
+    the viewer's PLY load pads them: dead slots zero, opacity logit -20."""
+    import numpy as np
+    import torch
+
+    from semantic_gaussians_torch.core.gaussians import params_from_numpy, round_capacity
+
+    n = len(arrays["means"])
+    cap = round_capacity(n)
+    padded = {}
+    for k, v in arrays.items():
+        padded[k] = np.full((cap,) + v.shape[1:], -20.0 if k == "opacity_logits" else 0.0,
+                            np.float32)
+        padded[k][:n] = v
+    return params_from_numpy(padded, dev), torch.arange(cap, device=dev) < n
+
+
+def expand_shape(params, alive, cam):
+    """One view's expand inputs, as bin_gaussians builds them, at the
+    default pair budget of the params' capacity: {cull: {"ex":
+    ExpandInputs, "args": expand_pairs' arguments, "binning": a call of
+    bin_gaussians on the same projection}} for the cull on and off."""
+    import torch
+
+    from semantic_gaussians_torch.ops.binning import (
+        bin_gaussians, default_pair_budget, depth_sorted_rects,
+    )
+    from semantic_gaussians_torch.ops.projection import project_gaussians
+
+    th, tw = 16, 32
+    grid = (-(-cam.height // th), -(-cam.width // tw))
+    n = params.capacity
+    budget = default_pair_budget(n)
+    if budget >= 1 << 24:
+        fail(f"pair budget {budget} of capacity {n} is not below 2^24")
+    with torch.no_grad():
+        proj = project_gaussians(
+            params.means, params.scales, params.quats, params.opacity[:, 0], cam.world_view,
+            cam.full_proj, cam.camera_center, cam.width, cam.height, cam.tan_half_fov_x,
+            cam.tan_half_fov_y, sh_coeffs=params.sh_coeffs, sh_degree=params.max_sh_degree,
+            alive=alive)
+    out = {}
+    for cull in (True, False):
+        ellipse = proj.cull_ellipse if cull else None
+        ex = depth_sorted_rects(proj.means2d, proj.depths, proj.radii_xy, (th, tw), grid,
+                                budget, ellipse)
+        out[cull] = dict(
+            ex=ex,
+            args=(ex.offsets, ex.rect_packed_d, ex.idx_d, ex.cull_d, ex.num_pairs,
+                  ex.num_dense, budget, grid[1], grid[0] * grid[1], n, tw, th),
+            binning=lambda e=ellipse: bin_gaussians(
+                proj.means2d, proj.depths, proj.radii_xy, (th, tw), grid, budget, e))
+    return out
+
+
+def million_shape(dev):
+    """Expand inputs of bench.py's scene law at EXPAND_MILLION Gaussians
+    (capacity 1,003,520, pair budget 12,042,240) through the viewer camera."""
+    import numpy as np
+
+    arrays, _ = make_scene(np, EXPAND_MILLION, feats=False)
+    params, alive = padded_params(arrays, dev)
+    return expand_shape(params, alive, viewer_camera(dev))
+
+
+def check_expand(label, module, args, want=None):
+    """`module`'s expand_pairs on `args` against the plain version (`want`,
+    its outputs when given), bit for bit; returns the plain outputs."""
+    import torch
+
+    from semantic_gaussians_torch.ops import expand
+
+    if want is None:
+        want = expand.expand_pairs_plain(*args)
+    got = module.expand_pairs(*args)
+    torch.cuda.synchronize()
+    for a, b, name in zip(got, want, ("tile", "g_key", "gen_owner")):
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            bad = int((a != b).sum()) if a.shape == b.shape else "all"
+            fail(f"expand ({label}) {name}: {bad} slots differ from the plain version")
+    return want
+
+
+def check_and_time_expand(card, shapes):
+    """Expand at each shape of `shapes` ({name: expand_shape(...)}), cull on
+    and off: the kernel bit for bit against the plain version, then its
+    time by CUDA events over 50 back-to-back wrapper calls (`ms`), by graph
+    replays (`device_us`: one call a graph; `device_us_10`: ten calls a
+    graph, per call), the host's time to enqueue one wrapper call
+    (`host_enqueue_us`), the plain version's and bin_gaussians' times
+    (expand's share of binning's device time), the plain version's peak
+    memory and the bound."""
+    import torch
+
+    from semantic_gaussians_torch.ops import expand
+
+    out = {}
+    for name, by_cull in shapes.items():
+        for cull, sh in by_cull.items():
+            label = f"{name} cull={'on' if cull else 'off'}"
+            args, ex = sh["args"], sh["ex"]
+            budget, num_tiles, n = args[6], args[8], args[9]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            want = expand.expand_pairs_plain(*args)
+            torch.cuda.synchronize()
+            plain_peak = torch.cuda.max_memory_allocated() - base
+            check_expand(label, expand, args, want)
+            valid, dense = int(ex.num_pairs), int(ex.num_dense)
+            live = int((want[0] < num_tiles).sum())
+            del want
+            # bytes: offsets, rects and ids (12 B) and, with the cull, its
+            # table (20 B) per pair-emitting Gaussian in (the rows past
+            # num_dense, padding and Gaussians with no tile, are not read);
+            # 12 B per slot out. f32 ops: ~65 per valid slot with the cull
+            # (tile_min_qn; the integer search and decode are not counted),
+            # none without.
+            fn = lambda: expand.expand_pairs(*args)
+            r = dict(n=n, num_dense=dense, budget=budget, valid=valid, live=live,
+                     overflow=int(ex.overflow),
+                     bound=(((32 if cull else 12) * dense + 12 * budget) / PEAK_BYTES,
+                            (65 * valid if cull else 0) / PEAK_F32),
+                     plain_peak_mb=plain_peak / 2**20,
+                     ms=cuda_ms(fn, 50), device_us=device_us(fn),
+                     device_us_10=device_us(fn, calls=10), host_enqueue_us=enqueue_us(fn),
+                     plain_ms=cuda_ms(lambda: expand.expand_pairs_plain(*args), 3),
+                     binning_ms=cuda_ms(sh["binning"], 10),
+                     binning_device_us=device_us(sh["binning"]))
+            r["bound_ms"] = max(r["bound"]) * 1e3
+            r["expand_share_of_binning"] = r["device_us"] / r["binning_device_us"]
+            out[label] = r
+            print(f"expand {label}: bit-identical on {budget} slots ({valid} valid, {live} "
+                  f"live, n={n}, num_dense={dense}); {r['ms']:.4f} ms, dev "
+                  f"{r['device_us']:.2f} us (x10 {r['device_us_10']:.2f}), enqueue "
+                  f"{r['host_enqueue_us']:.1f} us; bound {r['bound_ms'] * 1e3:.2f} us; binning "
+                  f"{r['binning_ms']:.4f} ms, dev {r['binning_device_us']:.2f} us; plain peak "
+                  f"{r['plain_peak_mb']:.0f} MiB")
+    print(json.dumps({"card": card, "expand_by_shape": out}))
+    return out
+
+
+def expand_numbers(r):
+    """One shape's expand numbers for the kernels line."""
+    keep = ("n", "num_dense", "budget", "valid", "live", "bound_ms", "ms", "device_us",
+            "device_us_10", "host_enqueue_us", "plain_ms", "binning_ms",
+            "binning_device_us", "expand_share_of_binning")
+    return {k: r[k] for k in keep}
+
+
+def check_expand_cases(dev):
+    """The expand kernel on every case of tools/expand_cases.py (the ones
+    the CPU tests hold the plain version against the JAX kernel on, and the
+    out-of-contract one that takes the kernel's per-slot search), cull on
+    and off, bit for bit against the plain version."""
+    from semantic_gaussians_torch.ops import expand
+    from semantic_gaussians_torch.tools.expand_cases import beyond_contract_case, expand_cases
+
+    k = 0
+    for c in [*expand_cases(), beyond_contract_case()]:
+        for cull in (True, False):
+            check_expand(f"case {c.name}, cull={cull}", expand, c.torch_args(cull, dev))
+            k += 1
+    print(f"expand cases: {k} kernel-vs-plain checks passed, bit for bit")
 
 
 def all_counters():
@@ -508,19 +723,19 @@ def count_launches(path, run, must_launch):
     return out, launches
 
 
-def serve_and_time(base, card, state, cam, arrays, budget, binning, expand_in, comp_cases):
+def serve_and_time(base, card, state, cam, arrays, budget, binning, comp_cases):
     """Phases 3-5 against the viewer server running at `base`; returns the
     kernels' launch counts over the viewer path's run and the forward
-    kernels' entries of the kernels line. `expand_in` and `comp_cases` are
-    the kernels' main-path inputs from phase 2."""
+    composite's entry of the kernels line. `comp_cases` are its main-path
+    inputs from phase 2 (expand is timed in phase 13)."""
     import numpy as np
     import torch
 
     from semantic_gaussians_torch.cli.view_server import encode_png
-    from semantic_gaussians_torch.ops import composite, expand, segsum
+    from semantic_gaussians_torch.ops import composite
     from semantic_gaussians_torch.renderer import render, render_chn
 
-    alive, dev, n = state.alive, cam.world_view.device, state.params.capacity
+    alive, dev = state.alive, cam.world_view.device
     num_tiles = binning.tile_start.numel()
 
     def get(mode):
@@ -591,16 +806,7 @@ def serve_and_time(base, card, state, cam, arrays, budget, binning, expand_in, c
     print("tiled renderer matches the dense oracle on 2000 Gaussians at 128x64")
 
     # ---------------------------------------------------------------- 5
-    num_pairs = int(expand_in[4])
-    # bytes: offsets, rects, ids (4 B each) and the cull table (20 B) per
-    # Gaussian in, 12 B out per slot. f32 ops: ~65 per valid slot
-    # (tile_min_qn; the integer search and decode are not counted).
-    kern = {"expand": dict(
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: expand.expand_pairs(*expand_in), 50),
-        plain_ms=cuda_ms(lambda: expand.expand_pairs_plain(*expand_in), 10),
-        bound=((32 * n + 12 * budget) / PEAK_BYTES, 65 * num_pairs / PEAK_F32),
-    )}
+    num_pairs = int(binning.num_pairs)
     in_pairs = int(binning.tile_count.sum())
     used = int(torch.unique(binning.pair_gaussian[:in_pairs]).numel())
     by_c = {}
@@ -639,14 +845,10 @@ def serve_and_time(base, card, state, cam, arrays, budget, binning, expand_in, c
         "render_chn_768_ms": render_chn_ms, "rgb_request_profile": profile(
             lambda: state.render(queries["RGB"])),
         "num_pairs": num_pairs, "pairs_in_tiles": in_pairs, "gaussians_in_tiles": used,
-        "expand": {k: v for k, v in kern["expand"].items()},
         "composite_by_channels": {str(c): d for c, d in by_c.items()},
     }))
 
     return launches, [
-        kernel_entry("expand", "semantic_gaussians_torch/csrc/expand.cu",
-                     "semantic_gaussians_tpu/ops/expand.py:121", kern["expand"],
-                     kern["expand"]["max_abs_err"], card),
         kernel_entry("composite_fwd", "semantic_gaussians_torch/csrc/composite_fwd.cu",
                      "semantic_gaussians_tpu/ops/composite_pallas.py:264", by_c[3],
                      max(d["max_abs_err"] for d in by_c.values()), card,
@@ -959,9 +1161,8 @@ def time_training(scene, dev, card):
     import torch
 
     from semantic_gaussians_torch.core.densify import add_stats
-    from semantic_gaussians_torch.core.gaussians import FIELDS, init_from_pcd
+    from semantic_gaussians_torch.core.gaussians import FIELDS
     from semantic_gaussians_torch.core.optimizer import adam_update, lr_tree
-    from semantic_gaussians_torch.io.scene import load_scene, realize_camera
     from semantic_gaussians_torch.ops.binning import default_pair_budget
     from semantic_gaussians_torch.pipelines.train import (
         TrainConfig, init_train_state, train_step,
@@ -969,9 +1170,7 @@ def time_training(scene, dev, card):
     from semantic_gaussians_torch.renderer import render
     from semantic_gaussians_torch.utils.losses import photometric_loss
 
-    info = load_scene(scene)
-    cam = realize_camera(info.train_cameras[0], device=dev)
-    params, alive = init_from_pcd(info.points, info.colors, device=dev)
+    info, cam, params, alive = training_view(scene, dev)
     state = init_train_state(params, alive)
     cfg = TrainConfig(spatial_lr_scale=float(info.nerf_normalization["radius"]))
     if cfg.cut_edge:
@@ -1024,6 +1223,19 @@ def time_training(scene, dev, card):
                       "train_step_profile": prof, "pair_budget": budget,
                       "num_pairs": int(metrics["num_pairs"]), "composite_on_train_view": comp}))
     return dict(step_ms=step_ms, parts=parts, profile=prof, composite=comp)
+
+
+def training_view(scene, dev):
+    """The timed training view: the train CLI's initial state (from the
+    scene's point cloud) and the first training camera. Returns (scene
+    info, camera, params, alive)."""
+    from semantic_gaussians_torch.core.gaussians import init_from_pcd
+    from semantic_gaussians_torch.io.scene import load_scene, realize_camera
+
+    info = load_scene(scene)
+    cam = realize_camera(info.train_cameras[0], device=dev)
+    params, alive = init_from_pcd(info.points, info.colors, device=dev)
+    return info, cam, params, alive
 
 
 def time_composite_view(params, alive, cam, bg, budget):

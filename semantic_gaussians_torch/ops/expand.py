@@ -17,12 +17,17 @@ import torch
 from . import kernels
 
 TIGHTCULL_MARGIN = 1.0 + 1e-4
+# A block of csrc/expand.cu takes CHUNK consecutive pair slots,
+# SLOTS_PER_THREAD a thread (mirrored there; the wrapper passes CHUNK and
+# the kernel refuses another value).
+SLOTS_PER_THREAD = 4
+CHUNK = 256 * SLOTS_PER_THREAD
 LAUNCHES = kernels.LaunchCounter("expand")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "sgt_expand_pairs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "sgt_expand_pairs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
 
@@ -114,19 +119,21 @@ def _expand_pairs_cuda(
     if any(t.device != dev for t in tensors):
         raise ValueError("expand_pairs: all tensors must be on one device")
     lib = kernels.load("expand", _SIGNATURES)
-    out = [torch.empty(pair_budget, dtype=torch.int32, device=dev) for _ in range(3)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    # One allocation for the three outputs (a call's host time is most of
+    # its cost at 100k Gaussians); each row is a contiguous view.
+    out = torch.empty((3, pair_budget), dtype=torch.int32, device=dev)
+    base = out.data_ptr()
+    with kernels.on_device(dev):
         err = lib.sgt_expand_pairs(
             offsets.data_ptr(), rect_packed_d.data_ptr(), idx_d.data_ptr(),
             None if cull_d is None else cull_d.data_ptr(),
             num_pairs.data_ptr(), num_dense.data_ptr(),
-            n, pair_budget, ntx, num_tiles, tile_w, tile_h,
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), stream,
+            n, pair_budget, ntx, num_tiles, tile_w, tile_h, CHUNK,
+            base, base + 4 * pair_budget, base + 8 * pair_budget, kernels.current_stream(dev),
         )
     kernels.check(lib, err, "sgt_expand_pairs")
     LAUNCHES.add()
-    return tuple(out)
+    return out.unbind(0)
 
 
 def expand_pairs(
