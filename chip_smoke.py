@@ -2,9 +2,10 @@
 """GPU smoke test of the PyTorch port (semantic_gaussians_torch).
 
 Drives the port's main paths once at full width on one CUDA card (the
-viewer service, RGB training through the train CLI, 2D -> 3D fusion and
-open-vocabulary evaluation through their CLIs, the segment-sum probe tools)
-and holds each hand-written kernel against its plain PyTorch version:
+viewer service, RGB training through the train CLI, 2D -> 3D fusion, 3D
+distillation and open-vocabulary evaluation through their CLIs, the
+segment-sum probe tools) and holds each hand-written kernel against its
+plain PyTorch version:
 
   1. device: the card's name and power limit, torch and CUDA versions; the
      five kernel sources are built from csrc/ (one nvcc per source, all at
@@ -57,11 +58,29 @@ and holds each hand-written kernel against its plain PyTorch version:
      them with depth=render. One expand and one forward-composite launch
      per view, visited share above VISITED_FLOOR, mean cosine of fused
      against palette features >= 0.9, the .pt reloads.
+ 9b. distill path: `python -m semantic_gaussians_torch.cli.distill` (in
+     process) trains MinkUNet34A (56 -> 768) on the fusion phase's model
+     and fused .pt: 2 cm voxels, a 200,000-voxel budget, augmentation on,
+     DISTILL_EPOCHS epochs of one step, the ring scene as the eval scene
+     (its render hook runs twice). Every loss finite, the last below the
+     first by DISTILL_LOSS_DROP, the checkpoint reloads, the hook's PNGs
+     exist, expand and forward-composite launches equal to the hook's
+     renders. The plain-torch UNet (no kernel of its own) is held against
+     itself on the CPU: MinkUNet34A on 4,096 of the scene's voxels, the
+     float32 eval-mode output and the float64 gradients of a cosine loss
+     within 1e-4 x each leaf's largest magnitude; float32 gradients are
+     printed (see check_unet_card_vs_cpu). Times: one distill step at the full
+     voxel count (median after warm-up) and its parts (topology, forward,
+     backward, AdamW, each ended by a synchronize), its device-busy
+     share, peak device memory, voxels a second, and one UNet inference
+     as eval 3d runs it.
  10. eval path: ground-truth label images rendered from the palette's
      classes; `python -m semantic_gaussians_torch.cli.eval_segmentation`
      (in process) in mode 2d with pred_on_3d true (C = 21) and false
      (C = 768): mIoU >= 0.9 each; mode labelmap on its own ground truth:
-     mIoU = 1.
+     mIoU = 1; modes 3d, 2d_and_3d concat and 2d_and_3d argmax on the
+     distilled checkpoint (C = 21): a finite mIoU, every labeled pixel
+     counted.
  11. probe tools: `tools.exp_panel` and `tools.exp_panel2` at full size.
  12. fusion, eval and probe times.
  13. expand at three shapes, cull on and off: the viewer (phase 2's), the
@@ -427,9 +446,11 @@ def main():
         expand_shapes["training view"] = expand_shape(tparams, talive, tcam)
         del tparams, talive
 
-        # ------------------------------------------------------------ 9, 10
+        # ------------------------------------------------------------ 9, 9b, 10
         fused = fuse_through_cli(Path(train_tmp), trained["scene"], arrays, dev, card)
-        evaluated = eval_through_cli(Path(train_tmp), trained["scene"], fused, dev, card)
+        distilled = distill_through_cli(Path(train_tmp), trained["scene"], fused, dev, card)
+        evaluated = eval_through_cli(Path(train_tmp), trained["scene"], fused, distilled, dev,
+                                     card)
     del fused["state"]
 
     # ---------------------------------------------------------------- 11
@@ -497,14 +518,15 @@ def main():
         device_us=viewer_ex["device_us"],
         by_shape={k: expand_numbers(v) for k, v in ex_by_shape.items()}))
     # Launches, counted from 0 over each main path's run: the viewer's
-    # requests (phase 3), the train CLI (7), the fusion CLI (9), the eval
-    # CLI's three runs (10) and the two probe tools (11). `launches` is
-    # their sum.
+    # requests (phase 3), the train CLI (7), the fusion CLI (9), the distill
+    # CLI (9b), the eval CLI's six runs (10) and the two probe tools (11).
+    # `launches` is their sum.
     for e in kernel_lines:
         if e["name"] == "composite_fwd":
             e["training_view"] = step_times["composite"]["composite_fwd"]
     paths = {"viewer": viewer_launches, "train": trained["launches"],
-             "fusion": fused["launches"], "eval": evaluated["launches"],
+             "fusion": fused["launches"], "distill": distilled["launches"],
+             "eval": evaluated["launches"],
              "tools": tools["launches"]}
     for e in kernel_lines:
         by_path = {name: counts[e["name"]] for name, counts in paths.items()}
@@ -1721,10 +1743,265 @@ def fuse_through_cli(tmpdir, scene, arrays, dev, card):
                 fusion_out=out_dir, model_dir=model_dir, times=times)
 
 
-def eval_through_cli(tmpdir, scene, fused, dev, card):
+# ------------------------------------------------------------------ distill
+DISTILL_ARCH = "MinkUNet34A"  # the reference's distill net, 56 -> 768
+DISTILL_VOXEL, DISTILL_BUDGET = 0.02, 200_000  # distill_scannet.yaml's
+DISTILL_EPOCHS = 24  # one scene: one step an epoch; the hook runs at 12 and 24
+DISTILL_LOSS_DROP = 0.15  # measured 0.198 on this scene (0.995 -> 0.797, 24 steps)
+UNET_CHECK_VOXELS = 4096
+
+
+def distill_through_cli(tmpdir, scene, fused, dev, card):
+    """The distill main path: the distill CLI, in process, on the fusion
+    phase's model and fused .pt, every launch count set to 0 just before
+    and read just after; then the UNet against itself on the CPU and the
+    step's times. Returns what the eval phase needs."""
+    import numpy as np
+    import torch
+
+    from semantic_gaussians_torch.cli import distill as distill_cli
+    from semantic_gaussians_torch.config.config import default_config_dir
+    from semantic_gaussians_torch.io.scene import load_scene
+    from semantic_gaussians_torch.pipelines.distill import load_distill_model
+
+    out_dir = tmpdir / "distill"
+    yaml = default_config_dir() / "distill_scannet.yaml"
+    overrides = [
+        f"model.model_dir={fused['model_dir']}", "model.load_iteration=-1",
+        f"fusion.out_dir={fused['fusion_out'] / scene.name}", f"fusion.embedding_dim={FEAT_DIM}",
+        f"distill.model_3d={DISTILL_ARCH}", f"distill.voxel_size={DISTILL_VOXEL}",
+        f"distill.voxel_budget={DISTILL_BUDGET}", "distill.aug=true",
+        f"distill.epochs={DISTILL_EPOCHS}", f"distill.save_interval={DISTILL_EPOCHS}",
+        f"distill.eval_interval={DISTILL_EPOCHS // 2}", f"distill.eval_scene={scene}",
+        f"distill.out_dir={out_dir}",
+    ]
+    t0 = time.perf_counter()
+    summary, launches = count_launches(
+        "distill", lambda: distill_cli.main([str(yaml), *overrides]), ("expand", "composite_fwd"))
+    wall = time.perf_counter() - t0
+    losses = summary["losses"]
+    print(f"distill CLI: {len(losses)} steps in {wall:.1f} s (scene load, the eval scene's "
+          f"voxelization, two hook renders and the checkpoint included); launches {launches}")
+    print(f"distill losses: {[round(x, 5) for x in losses]}")
+    if len(losses) != DISTILL_EPOCHS or not np.isfinite(losses).all():
+        fail(f"distill losses: {losses}")
+    drop = losses[0] - losses[-1]
+    if not drop >= DISTILL_LOSS_DROP:
+        fail(f"distill loss fell {drop:.5f} from the first step to the last, less than "
+             f"{DISTILL_LOSS_DROP}")
+    views = len(load_scene(scene, eval_split=False).train_cameras[::40][:3])  # the CLI's
+    if len(summary["hook_dirs"]) != 2:
+        fail(f"the eval render hook ran {len(summary['hook_dirs'])} times, not 2")
+    for d in summary["hook_dirs"]:
+        pngs = sorted(Path(d).glob("*.png"))
+        if len(pngs) != views or any(p.stat().st_size == 0 for p in pngs):
+            fail(f"the hook wrote {len(pngs)} PNGs to {d} for {views} views")
+    for name in ("expand", "composite_fwd"):  # one render (C = 3) a view a hook call
+        if launches[name] != views * len(summary["hook_dirs"]):
+            fail(f"distill launched {name} {launches[name]} times for {views} view(s) x "
+                 f"{len(summary['hook_dirs'])} hook calls")
+    ckpt = summary["checkpoints"][-1]
+    model = summary["model"]
+    again = load_distill_model(ckpt, 56, FEAT_DIM, DISTILL_ARCH, dev)
+    for (k, a), b in zip(model.state_dict().items(), again.state_dict().values()):
+        if not torch.equal(a, b):
+            fail(f"checkpoint {ckpt.name} reloads {k} changed")
+    print(f"distill: loss {losses[0]:.5f} -> {losses[-1]:.5f} (drop {drop:.5f}); checkpoint "
+          f"{ckpt.name} reloads bit for bit; hook PNGs in {[Path(d).name for d in summary['hook_dirs']]}")
+    del model, again, summary
+    ply = sorted((fused["model_dir"] / "point_cloud").glob("iteration_*"))[-1] / "point_cloud.ply"
+    pt = sorted((fused["fusion_out"] / scene.name).glob("*.pt"))[0]
+    item, unet_errs = check_unet_card_vs_cpu(ply, pt, dev)
+    times = time_distill(item, fused, out_dir, dev, card)
+    print(json.dumps({"card": card, "distill": dict(
+        steps=len(losses), loss_first=losses[0], loss_last=losses[-1], loss_drop=drop,
+        cli_wall_s=wall, launches=launches, unet_card_vs_cpu=unet_errs)}))
+    return dict(launches=launches, out_dir=out_dir, epochs=DISTILL_EPOCHS, losses=losses,
+                cli_wall_s=wall, times=times, unet_errs=unet_errs)
+
+
+def distill_item(ply, pt, seed=0):
+    """The distill dataset's item of the fusion scene (aug on), as the CLI
+    draws it."""
+    from semantic_gaussians_torch.data.feature_dataset import FeatureDataset
+
+    ds = FeatureDataset([str(ply)], [str(pt)], voxel_size=DISTILL_VOXEL, aug=True,
+                        voxel_budget=DISTILL_BUDGET)
+    return ds.__getitem__(0, seed=seed)
+
+
+def check_unet_card_vs_cpu(ply, pt, dev):
+    """The plain-torch UNet on the card against itself on the CPU (it has
+    no kernel of its own): MinkUNet34A (56 -> 768), one set of weights, on
+    the first UNET_CHECK_VOXELS voxels of the scene's item (an x slab, so
+    that every level has live voxels). Within 1e-4 x each leaf's largest
+    magnitude: the eval-mode output in float32, and the training-mode loss
+    and the gradients of the cosine loss in float64. Float32 gradients of
+    this net jump by a few percent of a leaf's max where a ReLU
+    pre-activation lies within rounding of zero, and which side a sum
+    lands on follows its order (the card's index_add_ atomics vary it):
+    on an H100 one leaf read 7.3% off float64 on the CPU and 2.6e-6 on
+    the card in one run, 7.3% on the card in the next. So the float32 gaps
+    (card vs CPU, each vs float64) are printed, not gated. Returns the
+    full item and the gaps."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from semantic_gaussians_torch.models.unet3d import build_topology, mink_unet
+    from semantic_gaussians_torch.utils.losses import cosine_distill_loss
+
+    item = distill_item(ply, pt)
+    v = UNET_CHECK_VOXELS
+    coords = item.coords[:v] - item.coords[:v].min(0)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        coords, item.feats[:v], item.gt[:v], item.gt_mask[:v], item.mask[:v])]
+    base = mink_unet(56, FEAT_DIM, DISTILL_ARCH, seed=SEED + 2)
+    got = {}
+    for side, device in (("cpu", "cpu"), ("card", dev)):
+        c, f, g, gm, m = (a.to(device) for a in args)
+        topo = build_topology(c, m)
+        for dtype in (torch.float32, torch.float64):
+            model = copy.deepcopy(base).to(device=device, dtype=dtype)
+            r = dict(alive=[int(l.mask.sum()) for l in topo.levels])
+            if dtype == torch.float32:
+                model.eval()
+                with torch.no_grad():
+                    r["out"] = model(f, topo).cpu()
+            model.train()
+            loss = cosine_distill_loss(model(f.to(dtype), topo), g.to(dtype), mask=gm)
+            loss.backward()
+            r["loss"] = float(loss.detach())
+            r["grads"] = {k: p.grad.double().cpu() for k, p in model.named_parameters()}
+            got[(side, dtype)] = r
+            del model
+
+    def worst(a, b):  # the largest |a - b| of a leaf over b's largest, over leaves
+        return max(float((a[k] - b[k]).abs().max() / max(float(b[k].abs().max()), 1e-300))
+                   for k in b)
+
+    f32, f64 = torch.float32, torch.float64
+    cpu32, card32, cpu64, card64 = (got[k] for k in (("cpu", f32), ("card", f32), ("cpu", f64),
+                                                     ("card", f64)))
+    if min(cpu32["alive"]) <= 0 or cpu32["alive"] != card32["alive"]:
+        fail(f"UNet check: alive voxels by level {cpu32['alive']} / {card32['alive']}")
+    errs = dict(
+        out_f32=float((cpu32["out"] - card32["out"]).abs().max() / cpu32["out"].abs().max()),
+        loss_f64=abs(cpu64["loss"] - card64["loss"]) / abs(cpu64["loss"]),
+        grads_f64=worst(card64["grads"], cpu64["grads"]),
+    )
+    bad = {k: x for k, x in errs.items() if not x <= 1e-4}
+    if bad:
+        fail(f"UNet on the card against the CPU, relative to each leaf's max: {bad}")
+    errs.update(grads_f32_card_vs_cpu=worst(card32["grads"], cpu32["grads"]),
+                grads_f32_cpu_vs_f64=worst(cpu32["grads"], cpu64["grads"]),
+                grads_f32_card_vs_f64=worst(card32["grads"], card64["grads"]))
+    print(f"UNet {DISTILL_ARCH} card vs CPU on {v} voxels (alive by level {cpu32['alive']}): "
+          + ", ".join(f"{k} {x:.3g}" for k, x in errs.items()))
+    return item, errs
+
+
+def time_distill(item, fused, out_dir, dev, card):
+    """One distill step at the full voxel count from a fresh MinkUNet34A:
+    the whole step (median of 5 after warm-up, host clock ending in a
+    synchronize), its parts (topology, forward + loss, backward, AdamW,
+    each ended by a synchronize; median of 5), the device-busy share of a
+    step, peak device memory, voxels a second; and one UNet inference as
+    eval 3d runs it (voxelize, topology, checkpoint load, forward,
+    scatter-back) and its forward alone."""
+    import torch
+
+    from semantic_gaussians_torch.cli.eval_segmentation import distilled_features
+    from semantic_gaussians_torch.config.config import default_config_dir, load_config
+    from semantic_gaussians_torch.models.unet3d import build_topology
+    from semantic_gaussians_torch.pipelines.distill import (
+        DistillConfig, item_tensors, load_distill_model, make_distill_state, make_distill_step,
+    )
+    from semantic_gaussians_torch.utils.losses import cosine_distill_loss
+
+    print(f"distill item: {item.num_voxels} voxels of {DISTILL_VOXEL * 100:.0f} cm from "
+          f"{N_GAUSSIANS} Gaussians (budget {DISTILL_BUDGET}), "
+          f"{int(item.gt_mask.sum())} supervised")
+    cfg = DistillConfig(model_3d=DISTILL_ARCH, feature_dim=FEAT_DIM, epochs=1000)
+    model, opt, schedule = make_distill_state(cfg, 1, SEED, device=dev)
+    step = make_distill_step(model, opt, schedule, cfg)
+    tensors = item_tensors(item, item.coords, dev)
+
+    def one():
+        step(*tensors)
+        torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = host_ms(one, 5)
+    peak = torch.cuda.max_memory_allocated()
+
+    def in_parts():
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        c, f, g, gm, m = tensors
+        topo = build_topology(c, m)
+        mark()
+        model.train()
+        loss = cosine_distill_loss(model(f, topo), g, mask=gm)
+        mark()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        mark()
+        opt.step()
+        mark()
+        return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+
+    runs = [in_parts() for _ in range(6)][1:]
+    parts = {k: statistics.median(r[i] for r in runs)
+             for i, k in enumerate(("topology", "forward", "backward", "adamw"))}
+    prof = profile(one)
+    del model, opt, step, tensors
+    torch.cuda.empty_cache()
+
+    # One UNet inference as eval 3d runs it, on the CLI's checkpoint.
+    params, alive = fused["state"][:2]
+    ecfg = load_config(default_config_dir() / "eval.yaml", [
+        f"distill.model_dir={out_dir}", f"distill.iteration={DISTILL_EPOCHS}",
+        f"distill.model_3d={DISTILL_ARCH}", f"distill.voxel_size={DISTILL_VOXEL}",
+        f"distill.voxel_budget={DISTILL_BUDGET}"])
+
+    def infer():
+        with torch.no_grad():
+            feats = distilled_features(ecfg, params, alive, FEAT_DIM, dev)
+        torch.cuda.synchronize()
+        return feats
+
+    infer_ms = host_ms(infer, 3)
+    feats = infer()
+    if feats.shape != (params.capacity, FEAT_DIM) or not torch.isfinite(feats).all():
+        fail(f"eval 3d features: shape {tuple(feats.shape)}, finite {bool(torch.isfinite(feats).all())}")
+    net = load_distill_model(out_dir / f"model_{DISTILL_EPOCHS}.npz", 56, FEAT_DIM, DISTILL_ARCH, dev)
+    c, f, _, _, m = item_tensors(item, item.coords, dev)
+    topo = build_topology(c, m)
+
+    def forward():
+        with torch.no_grad():
+            net(f, topo)
+        torch.cuda.synchronize()
+
+    forward_ms = host_ms(forward, 5)
+    times = dict(step_ms=step_ms, parts_ms=parts, profile=prof, peak_mem_gib=peak / 2**30,
+                 voxels=item.num_voxels, voxels_per_s=item.num_voxels / (step_ms / 1e3),
+                 eval3d_features_ms=infer_ms, eval3d_forward_ms=forward_ms)
+    print(json.dumps({"card": card, "distill_step": times}))
+    return times
+
+
+def eval_through_cli(tmpdir, scene, fused, distilled, dev, card):
     """The eval main path: the eval CLI, in process, in mode 2d with
-    pred_on_3d true and false, then in mode labelmap on its own ground
-    truth; the launch counts run over all three."""
+    pred_on_3d true and false, in mode labelmap on its own ground truth,
+    then in modes 3d, 2d_and_3d concat and 2d_and_3d argmax on the
+    distilled checkpoint; the launch counts run over all six."""
     import numpy as np
     import torch
     from PIL import Image
@@ -1759,19 +2036,32 @@ def eval_through_cli(tmpdir, scene, fused, dev, card):
         f"eval.label_dir={label_dir}", f"eval.log_file={tmpdir / 'eval_result.log'}",
     ]
 
+    distill = [f"distill.model_dir={distilled['out_dir']}", f"distill.iteration={distilled['epochs']}",
+               f"distill.model_3d={DISTILL_ARCH}", f"distill.voxel_size={DISTILL_VOXEL}",
+               f"distill.voxel_budget={DISTILL_BUDGET}", "eval.pred_on_3d=true"]
+
     def run_all():
         return {
             "2d_onehot": eval_cli.main(base + ["eval.eval_mode=2d", "eval.pred_on_3d=true"]),
             "2d_features": eval_cli.main(base + ["eval.eval_mode=2d", "eval.pred_on_3d=false"]),
             "labelmap": eval_cli.main(base + ["eval.eval_mode=labelmap"]),
+            "3d": eval_cli.main(base + distill + ["eval.eval_mode=3d"]),
+            "2d_and_3d_concat": eval_cli.main(base + distill + [
+                "eval.eval_mode=2d_and_3d", "eval.feature_fusion=concat"]),
+            "2d_and_3d_argmax": eval_cli.main(base + distill + [
+                "eval.eval_mode=2d_and_3d", "eval.feature_fusion=argmax"]),
         }
 
     results, launches = count_launches("eval", run_all, ("expand", "composite_fwd"))
     widths = composite.LAUNCHES.by_key
     print(f"eval CLI: launches {launches}; forward composite by channel width {widths}")
-    for c in (k + 1, FEAT_DIM):  # two kernels a call from LIST_MIN_CHANNELS on
+    # one render a view a rendering mode: C = K + 1 (one-hot) in 2d_onehot and
+    # the three distilled modes, C = 768 in 2d_features; labelmap renders none
+    if launches["expand"] != 5 * len(gts):
+        fail(f"eval launched expand {launches['expand']} times for 5 x {len(gts)} renders")
+    for c, renders in ((k + 1, 4), (FEAT_DIM, 1)):  # two kernels a call from LIST_MIN_CHANNELS on
         per_call = 2 if c >= composite.LIST_MIN_CHANNELS else 1
-        if widths.get(c, 0) != per_call * len(gts):
+        if widths.get(c, 0) != per_call * renders * len(gts):
             fail(f"eval launched the forward composite at C={c} {widths.get(c, 0)} times")
     miou = {name: r[0] for name, r in results.items()}
     for name in ("2d_onehot", "2d_features"):
@@ -1779,6 +2069,11 @@ def eval_through_cli(tmpdir, scene, fused, dev, card):
             fail(f"eval {name}: mIoU {miou[name]:.4f} < 0.9")
     if miou["labelmap"] != 1.0:
         fail(f"eval labelmap on its own ground truth: mIoU {miou['labelmap']}")
+    for name in ("3d", "2d_and_3d_concat", "2d_and_3d_argmax"):
+        if not 0.0 <= miou[name] <= 1.0:
+            fail(f"eval {name}: mIoU {miou[name]}")
+    print(f"eval 3d mIoU {miou['3d']:.4f}; 2d_and_3d concat {miou['2d_and_3d_concat']:.4f}, "
+          f"argmax {miou['2d_and_3d_argmax']:.4f}")
     pixels = len(gts) * FUSE_W * FUSE_H
     for name, (_, _, conf) in results.items():
         if int(conf.sum()) != round(pixels * (1 - unlabeled)):

@@ -7,9 +7,12 @@ Usage:
         scene.scene_path=... model.model_dir=... fusion.out_dir=... \\
         eval.eval_mode=2d [--device cpu]
 
-Modes: 2d (fused per-Gaussian features), pretrained (the 2D provider run on
-each eval view), labelmap (precomputed per-view label maps). Modes 3d and
-2d_and_3d need the sparse UNet and raise until the distill slice ports it.
+Modes: 2d (fused per-Gaussian features), 3d (the distilled sparse UNet's
+features: checkpoint `<distill.model_dir>/model_<distill.iteration>.npz`,
+the Gaussians voxelized at `distill.voxel_size` into `distill.voxel_budget`
+voxels), 2d_and_3d (both, `eval.feature_fusion` concat or argmax),
+pretrained (the 2D provider run on each eval view), labelmap (precomputed
+per-view label maps).
 Ground truth: <scene>/label-filt/<frame>.png raw ids mapped through the
 scene's scannetv2 TSV, or train-id label images in `eval.label_dir`.
 Evaluates every 10th training view on CUDA (`eval.device`, default cuda);
@@ -26,12 +29,17 @@ import numpy as np
 import torch
 
 from ..config.config import load_config, pretty
+from ..core.gaussians import packed_features
 from ..data.scannet_constants import (
     COCOMAP_CLASS_LABELS, SCANNET20_CLASS_LABELS, map_label_image, read_label_mapping,
 )
 from ..io.scene import load_scene
 from ..models.predictors import RandomFeatureProvider, TorchCLIPTextEncoder, make_predictor
-from ..pipelines.eval_segmentation import EvalAccumulator, eval_views, text_feature_matrix
+from ..pipelines.distill import load_distill_model
+from ..pipelines.eval_segmentation import (
+    EvalAccumulator, ensemble_argmax_class, ensemble_features, eval_views, text_feature_matrix,
+    voxel_feats_to_gaussians, voxelize_for_net,
+)
 from ..pipelines.fusion import load_fused_features
 from ..utils.camera import make_camera
 from ..utils.device import resolve_device
@@ -58,6 +66,25 @@ def _load_label_map(lm_dir: pathlib.Path, name: str):
     return None
 
 
+def distilled_features(cfg, params, alive, dim, device) -> torch.Tensor:
+    """Per-Gaussian features [cap, dim] from the distilled UNet: the alive
+    Gaussians' packed parameters voxelized, one eval-mode forward, each
+    Gaussian given its voxel's output (zero if its voxel fell past the
+    budget)."""
+    d = cfg.distill
+    n_alive = int(alive.sum())
+    pf = packed_features(params, alive, d.get("feature_type", "all"))[:n_alive].cpu().numpy()
+    feats_in, topo, inverse, num_valid = voxelize_for_net(
+        params.means[:n_alive].cpu().numpy(), pf, float(d.get("voxel_size", 0.02)),
+        int(d.get("voxel_budget", 200_000)), device)
+    ckpt = pathlib.Path(d.model_dir) / f"model_{d.iteration}.npz"
+    model = load_distill_model(ckpt, pf.shape[-1], dim, d.get("model_3d", "MinkUNet34A"), device)
+    with torch.no_grad():
+        vout = model(feats_in, topo)
+    return voxel_feats_to_gaussians(vout.cpu().numpy(), inverse, n_alive, params.capacity,
+                                    num_valid=num_valid, device=device)
+
+
 def main(argv=None):
     """Evaluate as configured. Returns (mIoU, mAcc, confusion), or None when
     the scene has no ground-truth label images."""
@@ -73,10 +100,6 @@ def main(argv=None):
     device = resolve_device(args.device or e.get("device", "cuda"))
     print(pretty(cfg))
     mode = e.get("eval_mode", "2d")
-    if mode in DISTILL_MODES:
-        raise NotImplementedError(
-            f"eval_mode={mode!r} needs the sparse UNet: it lands with the distill slice"
-        )
     if mode not in MODES:
         raise ValueError(f"unknown eval_mode {mode!r}")
     dataset = cfg.scene.get("dataset_name", "cocomap")
@@ -98,10 +121,25 @@ def main(argv=None):
     scene = load_scene(cfg.scene.scene_path, eval_split=False)
     params, alive = load_model(cfg, device)
     scene_name = pathlib.Path(cfg.scene.scene_path).name
-    gauss_feats = None
-    if mode == "2d":
+    gauss_feats = feats_2d = feats_3d = None
+    if mode in ("2d", "2d_and_3d"):
         fused = sorted((pathlib.Path(fusion.out_dir) / scene_name).glob("*.pt"))[0]
-        gauss_feats, _ = load_fused_features(fused, capacity=params.capacity, device=device)
+        feats_2d, _ = load_fused_features(fused, capacity=params.capacity, device=device)
+    if mode in DISTILL_MODES:
+        feats_3d = distilled_features(cfg, params, alive, dim, device)
+    if mode == "2d":
+        gauss_feats = feats_2d
+    elif mode == "3d":
+        gauss_feats = feats_3d
+    elif mode == "2d_and_3d":
+        if e.get("feature_fusion", "concat") == "concat":
+            gauss_feats = ensemble_features(feats_2d, feats_3d)
+            text = np.concatenate([text, text], axis=-1)
+        else:
+            # each Gaussian's class by the larger of its two similarities,
+            # evaluated as that class's exact text feature
+            text_t = torch.from_numpy(text).to(device)
+            gauss_feats = text_t[ensemble_argmax_class(feats_2d, feats_3d, text_t)]
 
     # eval views + ground-truth labels
     cams, gts, eval_infos = [], [], []

@@ -8,7 +8,8 @@ arrays with an `alive` mask kept beside them, and the same activations:
 The state is a frozen dataclass of tensors; edits build a new one with
 `dataclasses.replace`, as the JAX package does. `init_from_pcd` makes the
 initial state from a point cloud (the JAX package's, with the port's own
-torch KNN in place of its native or blocked-JAX one).
+torch KNN in place of its native or blocked-JAX one). `packed_features`
+is the distill net's per-Gaussian input.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.knn import knn_mean_sq_dist
-from ..utils.sh import rgb_to_sh
+from ..utils.sh import rgb_to_sh, sh_to_rgb
 
 FIELDS = ("means", "sh_dc", "sh_rest", "log_scales", "quats", "opacity_logits")
 
@@ -136,5 +137,43 @@ def init_from_pcd(
     return params, torch.arange(cap, device=device) < n
 
 
+def random_init(
+    generator: torch.Generator, num_points: int = 100_000, sh_degree: int = 3,
+    device: Union[str, torch.device] = "cpu",
+) -> Tuple[GaussianParams, torch.Tensor]:
+    """A random cloud in the Blender-scene bounds (gaussian_model.py:152-160),
+    drawn from `generator` (a CPU torch.Generator)."""
+    xyz = torch.rand((num_points, 3), generator=generator) * 2.6 - 1.3
+    shs = torch.rand((num_points, 3), generator=generator) / 255.0
+    return init_from_pcd(xyz.numpy(), sh_to_rgb(shs).numpy(), sh_degree, device=device)
+
+
+def packed_features(
+    params: GaussianParams, alive: torch.Tensor, feature_type: str = "all"
+) -> torch.Tensor:
+    """Per-Gaussian input of the 3D distill net: the RAW (pre-activation)
+    parameters, as get_locs_and_features (gaussian_model.py:400-418) packs
+    them. "all": [opacity_logit, f_dc(3), f_rest(45), log_scale(3),
+    quat(4)] = 56 channels; "color": [f_dc(3), f_rest(45)] = 48 (SH degree
+    3). Dead rows are zero."""
+    f_dc = params.sh_dc.reshape(params.capacity, -1)
+    f_rest = params.sh_rest.reshape(params.capacity, -1)
+    if feature_type == "color":
+        feats = torch.cat([f_dc, f_rest], dim=-1)
+    else:
+        feats = torch.cat(
+            [params.opacity_logits, f_dc, f_rest, params.log_scales, params.quats], dim=-1
+        )
+    return feats * alive[:, None]
+
+
 def num_alive(alive: torch.Tensor) -> torch.Tensor:
     return torch.sum(alive.to(torch.int32))
+
+
+def create_semantic(capacity: int, num_channels: int = 768,
+                    device: Union[str, torch.device] = "cpu"):
+    """Zero per-Gaussian semantic features and visit counters
+    (create_semantic, gaussian_model.py:188-194)."""
+    return (torch.zeros((capacity, num_channels), dtype=torch.float32, device=device),
+            torch.zeros((capacity,), dtype=torch.float32, device=device))

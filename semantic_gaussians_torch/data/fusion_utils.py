@@ -5,8 +5,9 @@ Port of semantic_gaussians_tpu.data.fusion_utils (`adjust_intrinsic`,
 resolution, project N points with K [R|t], round to pixels, bounds test
 with a cut_bound margin, occlusion |depth[px] - z| <= vis_thres * depth;
 "surface" mode synthesizes the z-buffer from the points themselves. Plain
-functions on tensors, on whatever device holds them. The voxelizer feeds
-only the sparse UNet and is ported with the distill slice.
+functions on tensors, on whatever device holds them. `Voxelizer` (the
+sparse UNet's input: augment, floor-quantize, deduplicate) is host-side
+numpy with a sort-based dedupe (`np.unique`) at every size.
 """
 from __future__ import annotations
 
@@ -112,3 +113,89 @@ def surface_depth(
     buf.scatter_reduce_(0, idx, torch.where(ok, z, inf), "amin")
     zb = buf[: h * w].reshape(h, w)
     return torch.where(torch.isfinite(zb), zb, torch.zeros_like(zb))
+
+
+# --------------------------------------------------------------------------
+# Voxelizer (host-side, numpy)
+# --------------------------------------------------------------------------
+class Voxelizer:
+    """Floor-quantize + dedupe with optional augmentation
+    (fusion_utils.py:81-211). `voxelize` returns (voxel coords, feats,
+    labels, inverse, first_idx): `inverse` maps each point to its voxel
+    row, `first_idx` each voxel to its first point."""
+
+    def __init__(
+        self,
+        voxel_size: float = 0.05,
+        clip_bound=None,
+        use_augmentation: bool = False,
+        scale_augmentation_bound=None,  # e.g. (0.9, 1.1)
+        rotation_augmentation_bound=None,  # e.g. ((-pi/64, pi/64), ...) per axis
+        translation_augmentation_ratio_bound=None,
+        ignore_label: int = 255,
+    ):
+        self.voxel_size = voxel_size
+        self.clip_bound = clip_bound
+        self.use_augmentation = use_augmentation
+        self.scale_augmentation_bound = scale_augmentation_bound
+        self.rotation_augmentation_bound = rotation_augmentation_bound
+        self.translation_augmentation_ratio_bound = translation_augmentation_ratio_bound
+        self.ignore_label = ignore_label
+
+    def _augment_transform(self, rng: np.random.Generator) -> np.ndarray:
+        T = np.eye(4)
+        if self.rotation_augmentation_bound is not None:
+            rot = np.eye(3)
+            for axis, bound in enumerate(self.rotation_augmentation_bound):
+                if bound is None:
+                    continue
+                theta = rng.uniform(bound[0], bound[1])
+                axis_vec = np.zeros(3)
+                axis_vec[axis] = 1
+                rot = rot @ _axis_angle(axis_vec, theta)
+            T[:3, :3] = rot
+        if self.scale_augmentation_bound is not None:
+            T[:3, :3] *= rng.uniform(*self.scale_augmentation_bound)
+        return T
+
+    def voxelize(
+        self,
+        coords: np.ndarray,
+        feats: np.ndarray,
+        labels: Optional[np.ndarray] = None,
+        center=None,
+        seed: Optional[int] = None,
+    ):
+        rng = np.random.default_rng(seed)
+        c = np.asarray(coords, np.float64)
+        if self.use_augmentation:
+            T = self._augment_transform(rng)
+            c = c @ T[:3, :3].T
+            if self.translation_augmentation_ratio_bound is not None:
+                span = c.max(0) - c.min(0)
+                for i, bound in enumerate(self.translation_augmentation_ratio_bound):
+                    c[:, i] += rng.uniform(span[i] * bound[0], span[i] * bound[1])
+        vox = np.floor(c / self.voxel_size).astype(np.int64)
+        vox -= vox.min(0)
+        # sort-based dedupe (in place of the reference's FNV-64 hashing)
+        dims = vox.max(0) + 1
+        lin = (vox[:, 0] * dims[1] + vox[:, 1]) * dims[2] + vox[:, 2]
+        _, first_idx, inverse = np.unique(lin, return_index=True, return_inverse=True)
+        out_feats = np.asarray(feats)[first_idx]
+        out_labels = np.asarray(labels)[first_idx] if labels is not None else None
+        return vox[first_idx], out_feats, out_labels, inverse, first_idx
+
+
+def _axis_angle(axis: np.ndarray, theta: float) -> np.ndarray:
+    axis = axis / np.linalg.norm(axis)
+    a = np.cos(theta / 2.0)
+    b, c, d = -axis * np.sin(theta / 2.0)
+    aa, bb, cc, dd = a * a, b * b, c * c, d * d
+    bc, ad, ac, ab, bd, cd = b * c, a * d, a * c, a * b, b * d, c * d
+    return np.array(
+        [
+            [aa + bb - cc - dd, 2 * (bc + ad), 2 * (bd - ac)],
+            [2 * (bc - ad), aa + cc - bb - dd, 2 * (cd + ab)],
+            [2 * (bd + ac), 2 * (cd - ab), aa + dd - bb - cc],
+        ]
+    )

@@ -8,8 +8,8 @@ paths per view:
 The text matrix has 'other' prepended at row 0; predicted train-ids are the
 argmax index - 1, with 'other' mapping to the confusion matrix's unlabeled
 column. The confusion is summed on the device that holds the Gaussians.
-`voxelize_for_net` (the sparse UNet's input) is ported with the distill
-slice.
+`voxelize_for_net` makes the sparse UNet's input (modes 3d and 2d_and_3d,
+and the distill trainer's eval render).
 """
 from __future__ import annotations
 
@@ -100,6 +100,35 @@ def voxel_feats_to_gaussians(
     out = np.zeros((cap, vf.shape[-1]), np.float32)
     out[:n_gaussians] = vf[inv]
     return torch.from_numpy(out).to(device)
+
+
+def voxelize_for_net(
+    locs: np.ndarray,  # [N, 3] world positions (alive prefix)
+    point_feats: np.ndarray,  # [N, F] packed Gaussian features
+    voxel_size: float,
+    voxel_budget: int,
+    device="cpu",
+):
+    """Voxelize points and pad to the voxel budget for the sparse UNet.
+    Returns (feats_in [budget, F] and the topology on `device`, inverse [N]
+    numpy, num_valid). Voxels past the budget are DROPPED (with a warning);
+    pass num_valid to voxel_feats_to_gaussians so that their Gaussians get
+    zero features."""
+    from ..data.fusion_utils import Voxelizer
+    from ..models.unet3d import build_topology
+
+    vc, vf, _, inverse, _ = Voxelizer(voxel_size=voxel_size).voxelize(locs, point_feats)
+    v = min(len(vc), voxel_budget)
+    if len(vc) > voxel_budget:
+        print(f"WARNING: {len(vc) - voxel_budget} voxels over the {voxel_budget} budget "
+              f"dropped (raise distill.voxel_budget)")
+    coords = np.zeros((voxel_budget, 3), np.int32)
+    coords[:v] = vc[:v]
+    feats_in = np.zeros((voxel_budget, point_feats.shape[-1]), np.float32)
+    feats_in[:v] = vf[:v]
+    topo = build_topology(torch.from_numpy(coords).to(device),
+                          torch.from_numpy(np.arange(voxel_budget) < v).to(device))
+    return torch.from_numpy(feats_in).to(device), topo, inverse, v
 
 
 @dataclasses.dataclass

@@ -1,4 +1,5 @@
-"""Image losses: L1, SSIM, PSNR and the 3DGS photometric loss.
+"""Losses: L1, L2, SSIM, PSNR, the 3DGS photometric loss and the distill
+cosine loss.
 
 Port of semantic_gaussians_tpu.utils.losses (11x11 Gaussian window, sigma
 1.5, per-channel SAME zero-padded blur, C1 = 0.01^2, C2 = 0.03^2). Images
@@ -24,6 +25,10 @@ import torch.nn.functional as F
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(pred - target))
+
+
+def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - target) ** 2)
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -84,3 +89,17 @@ def photometric_loss(
     return (1.0 - lambda_dssim) * l1_loss(pred, target) + lambda_dssim * (
         1.0 - ssim(pred, target)
     )
+
+
+def cosine_distill_loss(pred: torch.Tensor, target: torch.Tensor, mask=None) -> torch.Tensor:
+    """1 - cosine similarity, averaged over valid rows (by default rows with
+    a non-zero target). The norms are sqrt(sum + 1e-12): a plain norm has a
+    NaN gradient at exactly 0, and masked-out (dead-voxel) rows are exactly
+    0; 0 * NaN would still poison the backward."""
+    pn = pred / torch.sqrt(torch.sum(pred * pred, dim=-1, keepdim=True) + 1e-12)
+    tn = target / torch.sqrt(torch.sum(target * target, dim=-1, keepdim=True) + 1e-12)
+    per_row = 1.0 - torch.sum(pn * tn, dim=-1)
+    if mask is None:
+        mask = torch.linalg.norm(target, dim=-1) > 0
+    mask = mask.to(per_row.dtype)
+    return torch.sum(per_row * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -3,8 +3,10 @@ through the JAX package (on the CPU, Pallas in interpret mode) and the
 port: metrics and label mapping are exact; predicted label images agree on
 at least 99.9% of the pixels in both prediction paths; `eval_views`
 confusions differ by at most that share; the eval CLI on the CPU is held
-against the root eval_segmentation.py in its three ported modes, and the
-two modes that wait for the distill slice raise."""
+against the root eval_segmentation.py in all five modes: in 3d and
+2d_and_3d (concat and argmax) on the same distilled checkpoint, the
+per-Gaussian features fed to evaluation agree within 1e-4 x their largest
+magnitude and the confusion matrices are equal."""
 import pathlib
 import sys
 from unittest import mock
@@ -263,11 +265,80 @@ def test_eval_cli_matches_root_cli(toy, mode, extra, tol, capsys, monkeypatch, t
         assert port_lines == root_lines
 
 
+@pytest.fixture(scope="module")
+def distilled(toy):
+    """A MinkUNet14A (56 -> D) checkpoint of random weights in the JAX
+    package's format, written by the port, with BN statistics and a head
+    bias away from their init so that every layer shapes the output."""
+    from semantic_gaussians_torch.models.unet3d import mink_unet
+    from semantic_gaussians_torch.pipelines.distill import save_distill_checkpoint
+
+    model = mink_unet(56, D, "MinkUNet14A", seed=5)
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith(("mean", "bias")):
+                t.add_(0.1 * torch.randn(t.shape, generator=g))
+            elif name.endswith("var"):
+                t.mul_(torch.rand(t.shape, generator=g) + 0.5)
+    save_distill_checkpoint(toy / "distill" / "model_100.npz", model)
+    return toy / "distill"
+
+
+def _distill_overrides(distilled, budget=1024):
+    return [f"distill.model_dir={distilled}", "distill.model_3d=MinkUNet14A", "distill.iteration=100",
+            "distill.voxel_size=0.05", f"distill.voxel_budget={budget}"]
+
+
+@pytest.mark.parametrize("mode,extra", [
+    ("3d", ()),
+    ("2d_and_3d", ("eval.feature_fusion=concat",)),
+    ("2d_and_3d", ("eval.feature_fusion=argmax",)),
+], ids=["3d", "2d_and_3d_concat", "2d_and_3d_argmax"])
+def test_eval_cli_distill_modes_match_root_cli(toy, distilled, mode, extra, monkeypatch, tmp_path):
+    """The distilled modes through both CLIs on one checkpoint (1024 voxels
+    for ~1150 Gaussians in 5 cm voxels: the budget drops some, whose
+    Gaussians get zero features): the per-Gaussian features handed to
+    evaluation agree within 1e-4 x their largest magnitude (the argmax
+    ensemble's classes exactly), and the confusion matrices are equal."""
+    import eval_segmentation as root_eval
+
+    seen = {}
+
+    def recording(key, fn):
+        def wrapper(*args, **kw):
+            out = fn(*args, **kw)
+            seen[key] = (np_(args[4]), out[2])
+            return out
+        return wrapper
+
+    monkeypatch.setattr(jeval, "eval_views", recording("jax", jeval.eval_views))
+    monkeypatch.setattr(eval_cli, "eval_views", recording("port", eval_cli.eval_views))
+    monkeypatch.chdir(tmp_path)
+    overrides = _overrides(toy, mode, (*extra, *_distill_overrides(distilled)))
+    yaml = REPO / "semantic_gaussians_tpu/config/yamls/eval.yaml"
+    with mock.patch.object(sys, "argv", ["eval_segmentation.py", str(yaml), *overrides,
+                                         "pipeline.backend=pallas"]):
+        root_eval.main()
+    miou, macc, conf = eval_cli.main([str(default_config_dir() / "eval.yaml"), "--device", "cpu",
+                                      *overrides, f"eval.log_file={tmp_path / 'port.log'}"])
+    (jfeats, jconf), (tfeats, tconf) = seen["jax"], seen["port"]
+    width = 2 * D if extra == ("eval.feature_fusion=concat",) else D
+    assert tfeats.shape == jfeats.shape and tfeats.shape[1] == width
+    assert np.abs(tfeats - jfeats).max() <= 1e-4 * np.abs(jfeats).max()
+    if mode == "3d":  # the budget dropped some Gaussians' voxels
+        assert (np.abs(jfeats[:1150]).sum(-1) == 0).any()
+    np.testing.assert_array_equal(tconf, jconf)
+    assert conf.shape == (20, 21) and conf.sum() > 0.8 * 2 * W * H and 0 < miou <= 1
+
+
 @pytest.mark.parametrize("mode", ["3d", "2d_and_3d"])
-def test_eval_cli_distill_modes_raise(toy, mode):
-    with pytest.raises(NotImplementedError, match="distill slice"):
+def test_eval_cli_distill_modes_raise(toy, mode, tmp_path):
+    """The distilled modes raise without a checkpoint; an unknown mode
+    raises."""
+    with pytest.raises(FileNotFoundError, match="model_100.npz"):
         eval_cli.main([str(default_config_dir() / "eval.yaml"), "--device", "cpu",
-                       *_overrides(toy, mode)])
+                       *_overrides(toy, mode, _distill_overrides(tmp_path))])
     with pytest.raises(ValueError, match="unknown eval_mode"):
         eval_cli.main([str(default_config_dir() / "eval.yaml"), "--device", "cpu",
                        *_overrides(toy, "4d")])

@@ -108,6 +108,22 @@ def test_fusion_and_eval_clis_raise_without_cuda(monkeypatch, tmp_path, cli, yam
             main(args + cpu)
 
 
+def test_distill_cli_raises_without_cuda(monkeypatch, tmp_path):
+    """The distill CLI refuses to start without CUDA unless the CPU was
+    asked for; asked for, it gets as far as the (missing) scenes."""
+    from semantic_gaussians_torch.cli import distill
+    from semantic_gaussians_torch.config.config import default_config_dir
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = [str(default_config_dir() / "distill_scannet.yaml"), f"model.model_dir={tmp_path}",
+            f"fusion.out_dir={tmp_path / 'out'}", f"distill.out_dir={tmp_path / 'distill'}"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distill.main(args)
+    for cpu in (["--device", "cpu"], ["distill.device=cpu"]):
+        with pytest.raises(FileNotFoundError, match="no \\(point_cloud.ply, fused .pt\\) pairs"):
+            distill.main(args + cpu)
+
+
 @pytest.mark.parametrize("tool", ["exp_panel", "exp_panel2"])
 def test_probe_tools_raise_without_cuda(monkeypatch, tool):
     import importlib
