@@ -68,8 +68,9 @@ plain PyTorch version:
      renders. The plain-torch UNet (no kernel of its own) is held against
      itself on the CPU: MinkUNet34A on 4,096 of the scene's voxels, the
      float32 eval-mode output and the float64 gradients of a cosine loss
-     within 1e-4 x each leaf's largest magnitude; float32 gradients are
-     printed (see check_unet_card_vs_cpu). Times: one distill step at the full
+     within 1e-4 x each leaf's largest magnitude, and each side's float32
+     gradients against float64 run through that side's float32 ReLU masks
+     (see check_unet_card_vs_cpu). Times: one distill step at the full
      voxel count (median after warm-up) and its parts (topology, forward,
      backward, AdamW, each ended by a synchronize), its device-busy
      share, peak device memory, voxels a second, and one UNet inference
@@ -1749,6 +1750,7 @@ DISTILL_VOXEL, DISTILL_BUDGET = 0.02, 200_000  # distill_scannet.yaml's
 DISTILL_EPOCHS = 24  # one scene: one step an epoch; the hook runs at 12 and 24
 DISTILL_LOSS_DROP = 0.15  # measured 0.198 on this scene (0.995 -> 0.797, 24 steps)
 UNET_CHECK_VOXELS = 4096
+FLIP_NEAR_ZERO = 1e-5  # a ReLU flip's |float64 pre-activation| over its layer's max
 
 
 def distill_through_cli(tmpdir, scene, fused, dev, card):
@@ -1836,20 +1838,25 @@ def check_unet_card_vs_cpu(ply, pt, dev):
     the first UNET_CHECK_VOXELS voxels of the scene's item (an x slab, so
     that every level has live voxels). Within 1e-4 x each leaf's largest
     magnitude: the eval-mode output in float32, and the training-mode loss
-    and the gradients of the cosine loss in float64. Float32 gradients of
-    this net jump by a few percent of a leaf's max where a ReLU
-    pre-activation lies within rounding of zero, and which side a sum
-    lands on follows its order (the card's index_add_ atomics vary it):
-    on an H100 one leaf read 7.3% off float64 on the CPU and 2.6e-6 on
-    the card in one run, 7.3% on the card in the next. So the float32 gaps
-    (card vs CPU, each vs float64) are printed, not gated. Returns the
-    full item and the gaps."""
+    and the gradients of the cosine loss in float64, card against CPU.
+
+    Float32 gradients part from float64 by a few percent of a leaf's max
+    where a ReLU pre-activation that float64 puts within rounding of zero
+    lands on the other side in float32 (`tools/relu_flips.py`); which
+    entries flip follows the order of the sums, so the card and the CPU
+    flip different ones. So each side's float32 gradients are held, within
+    1e-4 x each leaf's max, against float64 run through that side's own
+    float32 ReLU masks, and every flip must lie within FLIP_NEAR_ZERO x its
+    layer's largest |pre-activation| of zero. The plain float32 gaps (card
+    vs CPU, each vs float64) and their worst leaf are printed. Returns the
+    full item and the numbers."""
     import copy
 
     import numpy as np
     import torch
 
     from semantic_gaussians_torch.models.unet3d import build_topology, mink_unet
+    from semantic_gaussians_torch.tools.relu_flips import relu_calls, sign_flips
     from semantic_gaussians_torch.utils.losses import cosine_distill_loss
 
     item = distill_item(ply, pt)
@@ -1862,43 +1869,69 @@ def check_unet_card_vs_cpu(ply, pt, dev):
     for side, device in (("cpu", "cpu"), ("card", dev)):
         c, f, g, gm, m = (a.to(device) for a in args)
         topo = build_topology(c, m)
-        for dtype in (torch.float32, torch.float64):
+        masks = None
+        for run, dtype in (("f32", torch.float32), ("f64", torch.float64),
+                           ("f64_f32_masks", torch.float64)):
             model = copy.deepcopy(base).to(device=device, dtype=dtype)
             r = dict(alive=[int(l.mask.sum()) for l in topo.levels])
-            if dtype == torch.float32:
+            if run == "f32":
                 model.eval()
                 with torch.no_grad():
                     r["out"] = model(f, topo).cpu()
             model.train()
-            loss = cosine_distill_loss(model(f.to(dtype), topo), g.to(dtype), mask=gm)
+            with relu_calls(masks if run == "f64_f32_masks" else None) as pre:
+                loss = cosine_distill_loss(model(f.to(dtype), topo), g.to(dtype), mask=gm)
             loss.backward()
-            r["loss"] = float(loss.detach())
-            r["grads"] = {k: p.grad.double().cpu() for k, p in model.named_parameters()}
-            got[(side, dtype)] = r
+            r.update(loss=float(loss.detach()), pre=pre,
+                     grads={k: p.grad.double().cpu() for k, p in model.named_parameters()})
+            if run == "f32":
+                masks = [x > 0 for x in pre]
+            got[(side, run)] = r
             del model
+        got[(side, "flips")] = sign_flips(got[(side, "f32")]["pre"], got[(side, "f64")]["pre"])
+        for run in ("f32", "f64", "f64_f32_masks"):
+            del got[(side, run)]["pre"]
 
-    def worst(a, b):  # the largest |a - b| of a leaf over b's largest, over leaves
-        return max(float((a[k] - b[k]).abs().max() / max(float(b[k].abs().max()), 1e-300))
-                   for k in b)
+    def gaps(a, b):  # {leaf: largest |a - b| over b's largest}
+        return {k: float((a[k] - b[k]).abs().max() / max(float(b[k].abs().max()), 1e-300))
+                for k in b}
 
-    f32, f64 = torch.float32, torch.float64
-    cpu32, card32, cpu64, card64 = (got[k] for k in (("cpu", f32), ("card", f32), ("cpu", f64),
-                                                     ("card", f64)))
+    def worst(a, b):
+        return max(gaps(a, b).values())
+
+    cpu32, card32 = got[("cpu", "f32")], got[("card", "f32")]
+    cpu64, card64 = got[("cpu", "f64")], got[("card", "f64")]
     if min(cpu32["alive"]) <= 0 or cpu32["alive"] != card32["alive"]:
         fail(f"UNet check: alive voxels by level {cpu32['alive']} / {card32['alive']}")
     errs = dict(
         out_f32=float((cpu32["out"] - card32["out"]).abs().max() / cpu32["out"].abs().max()),
         loss_f64=abs(cpu64["loss"] - card64["loss"]) / abs(cpu64["loss"]),
         grads_f64=worst(card64["grads"], cpu64["grads"]),
+        grads_f32_cpu_vs_f64_same_masks=worst(cpu32["grads"], got[("cpu", "f64_f32_masks")]["grads"]),
+        grads_f32_card_vs_f64_same_masks=worst(card32["grads"],
+                                               got[("card", "f64_f32_masks")]["grads"]),
     )
     bad = {k: x for k, x in errs.items() if not x <= 1e-4}
-    if bad:
-        fail(f"UNet on the card against the CPU, relative to each leaf's max: {bad}")
-    errs.update(grads_f32_card_vs_cpu=worst(card32["grads"], cpu32["grads"]),
-                grads_f32_cpu_vs_f64=worst(cpu32["grads"], cpu64["grads"]),
-                grads_f32_card_vs_f64=worst(card32["grads"], card64["grads"]))
+    flips = {side: got[(side, "flips")] for side in ("cpu", "card")}
+    far = {side: [fl for fl in fs if not fl[2] <= FLIP_NEAR_ZERO] for side, fs in flips.items()}
+    if bad or far["cpu"] or far["card"]:
+        fail(f"UNet on the card against the CPU, relative to each leaf's max: {bad}; ReLU "
+             f"flips (call, entries, |float64 pre-activation| over the call's max) farther "
+             f"than {FLIP_NEAR_ZERO} from zero: {far}")
+    plain = {"card_vs_cpu": gaps(card32["grads"], cpu32["grads"]),
+             "cpu_vs_f64": gaps(cpu32["grads"], cpu64["grads"]),
+             "card_vs_f64": gaps(card32["grads"], card64["grads"])}
+    for name, g in plain.items():
+        leaf = max(g, key=g.get)
+        errs[f"grads_f32_{name}"] = g[leaf]
+        errs[f"grads_f32_{name}_leaf"] = leaf
+    for side, fs in flips.items():
+        errs[f"relu_flips_{side}"] = sum(fl[1] for fl in fs)
+        errs[f"relu_flip_nearest_zero_{side}"] = max((fl[2] for fl in fs), default=0.0)
+        errs[f"relu_flip_calls_{side}"] = [fl[:2] for fl in fs]
     print(f"UNet {DISTILL_ARCH} card vs CPU on {v} voxels (alive by level {cpu32['alive']}): "
-          + ", ".join(f"{k} {x:.3g}" for k, x in errs.items()))
+          + ", ".join(f"{k} {x:.3g}" if isinstance(x, float) else f"{k} {x}"
+                      for k, x in errs.items()))
     return item, errs
 
 
@@ -1927,6 +1960,19 @@ def time_distill(item, fused, out_dir, dev, card):
     model, opt, schedule = make_distill_state(cfg, 1, SEED, device=dev)
     step = make_distill_step(model, opt, schedule, cfg)
     tensors = item_tensors(item, item.coords, dev)
+    # how much of each conv's gather lands on a neighbour: the step's
+    # index_add_ sums every missing slot into the one zero row
+    neighbours = []
+    for lvl in build_topology(tensors[0], tensors[4]).levels:
+        k, v = lvl.nbr.shape
+        alive, found = int(lvl.mask.sum()), int((lvl.nbr < v).sum())
+        neighbours.append(dict(alive=alive, offsets=k,
+                               found_besides_itself=(found - alive) / max(alive, 1),
+                               missing_slot_share=1 - found / max(k * alive, 1)))
+    print("distill topology by level (alive voxels, offsets, neighbours found a voxel "
+          "besides itself, share of gather slots that miss): "
+          + "; ".join(f"{n['alive']}, {n['offsets']}, {n['found_besides_itself']:.4f}, "
+                      f"{n['missing_slot_share']:.4f}" for n in neighbours))
 
     def one():
         step(*tensors)
@@ -1972,7 +2018,7 @@ def time_distill(item, fused, out_dir, dev, card):
 
     def infer():
         with torch.no_grad():
-            feats = distilled_features(ecfg, params, alive, FEAT_DIM, dev)
+            feats = distilled_features(ecfg, params, alive, FEAT_DIM)
         torch.cuda.synchronize()
         return feats
 
@@ -1992,6 +2038,7 @@ def time_distill(item, fused, out_dir, dev, card):
     forward_ms = host_ms(forward, 5)
     times = dict(step_ms=step_ms, parts_ms=parts, profile=prof, peak_mem_gib=peak / 2**30,
                  voxels=item.num_voxels, voxels_per_s=item.num_voxels / (step_ms / 1e3),
+                 neighbours=neighbours,
                  eval3d_features_ms=infer_ms, eval3d_forward_ms=forward_ms)
     print(json.dumps({"card": card, "distill_step": times}))
     return times

@@ -29,16 +29,14 @@ import numpy as np
 import torch
 
 from ..config.config import load_config, pretty
-from ..core.gaussians import packed_features
 from ..data.scannet_constants import (
     COCOMAP_CLASS_LABELS, SCANNET20_CLASS_LABELS, map_label_image, read_label_mapping,
 )
 from ..io.scene import load_scene
 from ..models.predictors import RandomFeatureProvider, TorchCLIPTextEncoder, make_predictor
-from ..pipelines.distill import load_distill_model
+from ..pipelines.distill import load_distill_model, make_gaussian_features
 from ..pipelines.eval_segmentation import (
     EvalAccumulator, ensemble_argmax_class, ensemble_features, eval_views, text_feature_matrix,
-    voxel_feats_to_gaussians, voxelize_for_net,
 )
 from ..pipelines.fusion import load_fused_features
 from ..utils.camera import make_camera
@@ -66,23 +64,17 @@ def _load_label_map(lm_dir: pathlib.Path, name: str):
     return None
 
 
-def distilled_features(cfg, params, alive, dim, device) -> torch.Tensor:
-    """Per-Gaussian features [cap, dim] from the distilled UNet: the alive
-    Gaussians' packed parameters voxelized, one eval-mode forward, each
-    Gaussian given its voxel's output (zero if its voxel fell past the
-    budget)."""
+def distilled_features(cfg, params, alive, dim) -> torch.Tensor:
+    """Per-Gaussian features [cap, dim] of the distilled UNet checkpoint
+    `<distill.model_dir>/model_<distill.iteration>.npz`, on the Gaussians'
+    device."""
     d = cfg.distill
-    n_alive = int(alive.sum())
-    pf = packed_features(params, alive, d.get("feature_type", "all"))[:n_alive].cpu().numpy()
-    feats_in, topo, inverse, num_valid = voxelize_for_net(
-        params.means[:n_alive].cpu().numpy(), pf, float(d.get("voxel_size", 0.02)),
-        int(d.get("voxel_budget", 200_000)), device)
+    in_channels, features = make_gaussian_features(
+        params, alive, d.get("feature_type", "all"), float(d.get("voxel_size", 0.02)),
+        int(d.get("voxel_budget", 200_000)))
     ckpt = pathlib.Path(d.model_dir) / f"model_{d.iteration}.npz"
-    model = load_distill_model(ckpt, pf.shape[-1], dim, d.get("model_3d", "MinkUNet34A"), device)
-    with torch.no_grad():
-        vout = model(feats_in, topo)
-    return voxel_feats_to_gaussians(vout.cpu().numpy(), inverse, n_alive, params.capacity,
-                                    num_valid=num_valid, device=device)
+    return features(load_distill_model(ckpt, in_channels, dim, d.get("model_3d", "MinkUNet34A"),
+                                       params.means.device))
 
 
 def main(argv=None):
@@ -126,7 +118,7 @@ def main(argv=None):
         fused = sorted((pathlib.Path(fusion.out_dir) / scene_name).glob("*.pt"))[0]
         feats_2d, _ = load_fused_features(fused, capacity=params.capacity, device=device)
     if mode in DISTILL_MODES:
-        feats_3d = distilled_features(cfg, params, alive, dim, device)
+        feats_3d = distilled_features(cfg, params, alive, dim)
     if mode == "2d":
         gauss_feats = feats_2d
     elif mode == "3d":

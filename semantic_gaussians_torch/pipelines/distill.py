@@ -6,7 +6,9 @@ decay over all steps, the cosine-similarity loss over voxels with
 supervision, a random global coordinate shift per item, periodic
 checkpoints and an every-N-epoch semantic render of a validation scene.
 Data preparation is host-side (FeatureDataset); the step (topology, UNet
-forward and backward, AdamW) runs on the device the model lives on.
+forward and backward, AdamW) runs on the device the model lives on. The
+functions that make a model or a scene's tensors take `device` through
+`utils.device.resolve_device`: CUDA unless the caller asks for the CPU.
 
 Checkpoints use the JAX package's format: the Flax variables tree
 ({"params", "batch_stats"}) as numpy arrays, pickled to model_<epoch>.npz,
@@ -26,8 +28,11 @@ from ..data.feature_dataset import DistillItem, FeatureDataset
 from ..models.unet3d import (
     GRID_MAX, MinkUNet, build_topology, mink_unet, unet_state_from_flax, unet_state_to_flax,
 )
+from ..utils.device import resolve_device
 from ..utils.losses import cosine_distill_loss, l1_loss, l2_loss
 from ..utils.schedules import cosine_decay_schedule
+
+Device = Union[str, torch.device, None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,14 +53,14 @@ class DistillConfig:
 
 
 def make_distill_state(
-    cfg: DistillConfig, steps_per_epoch: int, seed: int = 0,
-    device: Union[str, torch.device] = "cpu",
+    cfg: DistillConfig, steps_per_epoch: int, seed: int = 0, device: Device = None,
 ):
-    """The model (weights drawn from `seed`), its AdamW (optax's adamw: b1
-    0.9, b2 0.999, eps 1e-8, decoupled weight decay on every parameter) and
-    the learning-rate schedule the step sets before each update."""
+    """The model (weights drawn from `seed`) on `device` (CUDA by default),
+    its AdamW (optax's adamw: b1 0.9, b2 0.999, eps 1e-8, decoupled weight
+    decay on every parameter) and the learning-rate schedule the step sets
+    before each update."""
     model = mink_unet(cfg.in_channels, cfg.feature_dim * cfg.num_heads, cfg.model_3d, seed=seed,
-                      device=device)
+                      device=resolve_device(device))
     opt = torch.optim.AdamW(model.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=cfg.weight_decay)
     schedule = cosine_decay_schedule(cfg.lr, cfg.epochs * max(steps_per_epoch, 1))
@@ -98,13 +103,31 @@ def item_tensors(item: DistillItem, coords: np.ndarray, device):
         coords, item.feats, item.gt, item.gt_mask, item.mask))
 
 
-def distill_scene_features(model: MinkUNet, item: DistillItem, device=None) -> torch.Tensor:
-    """Inference: per-voxel features [V, C] of an item (eval mode)."""
-    device = device or next(model.parameters()).device
-    coords, feats, _, _, mask = item_tensors(item, item.coords, device)
-    model.eval()
-    with torch.no_grad():
-        return model(feats, build_topology(coords, mask))
+def make_gaussian_features(params, alive, feature_type: str, voxel_size: float,
+                           voxel_budget: int):
+    """The distilled net's per-Gaussian features of a scene, voxelized once:
+    the alive Gaussians' packed parameters (`feature_type`) are voxelized at
+    `voxel_size` into `voxel_budget` voxels and the topology is built on the
+    Gaussians' device. Returns (the net's input width, features), where
+    features(model) runs one eval-mode forward and gives each Gaussian its
+    voxel's output, [capacity, C] (zero if its voxel fell past the budget)."""
+    from ..core.gaussians import packed_features
+    from .eval_segmentation import voxel_feats_to_gaussians, voxelize_for_net
+
+    device = params.means.device
+    n_alive = int(alive.sum())
+    pf = packed_features(params, alive, feature_type)[:n_alive].cpu().numpy()
+    feats_in, topo, inverse, num_valid = voxelize_for_net(
+        params.means[:n_alive].cpu().numpy(), pf, voxel_size, voxel_budget, device)
+
+    def features(model: MinkUNet) -> torch.Tensor:
+        model.eval()
+        with torch.no_grad():
+            vout = model(feats_in, topo)
+        return voxel_feats_to_gaussians(vout.cpu().numpy(), inverse, n_alive, params.capacity,
+                                        num_valid=num_valid, device=device)
+
+    return pf.shape[-1], features
 
 
 def make_eval_render_hook(
@@ -118,30 +141,27 @@ def make_eval_render_hook(
     voxel_budget: int = 200_000,
     num_views: int = 3,
     backend: str = "tiled",
-    device: Union[str, torch.device] = "cpu",
+    device: Device = None,
 ):
     """The every-N-epoch semantic render of a validation scene (reference
-    distill.py:151-232): the net runs on the scene's voxelized Gaussians,
-    each Gaussian takes the palette colour of its most similar class, and a
-    few views are rendered to out_dir/semantic/<epoch>/<i>.png. The
-    voxelization and topology are built once; a call is one forward and
-    `num_views` renders. hook(epoch, model) returns the PNGs' directory."""
+    distill.py:151-232) on `device` (CUDA by default): the net runs on the
+    scene's voxelized Gaussians, each Gaussian takes the palette colour of
+    its most similar class, and a few views are rendered to
+    out_dir/semantic/<epoch>/<i>.png. The voxelization and topology are
+    built once; a call is one forward and `num_views` renders.
+    hook(epoch, model) returns the PNGs' directory."""
     from PIL import Image
 
-    from ..core.gaussians import packed_features, params_from_numpy
+    from ..core.gaussians import params_from_numpy
     from ..data.scannet_constants import COLORMAP
     from ..io.ply import load_gaussian_ply
     from ..renderer import render
-    from .eval_segmentation import voxel_feats_to_gaussians, voxelize_for_net
 
-    device = torch.device(device)
+    device = resolve_device(device)
     arrays, alive_np = load_gaussian_ply(ply_path)
     params = params_from_numpy(arrays, device)
     alive = torch.from_numpy(alive_np).to(device)
-    n_alive = int(alive_np.sum())
-    pf = packed_features(params, alive, feature_type)[:n_alive].cpu().numpy()
-    feats_in, topo, inverse, num_valid = voxelize_for_net(
-        arrays["means"][:n_alive], pf, voxel_size, voxel_budget, device)
+    _, features = make_gaussian_features(params, alive, feature_type, voxel_size, voxel_budget)
 
     text = np.asarray(text_features, np.float32)
     text = text / np.maximum(np.linalg.norm(text, axis=-1, keepdims=True), 1e-8)
@@ -152,11 +172,8 @@ def make_eval_render_hook(
     out_dir = Path(out_dir)
 
     def hook(epoch, model):
-        model.eval()
+        g = features(model)
         with torch.no_grad():
-            vout = model(feats_in, topo)
-            g = voxel_feats_to_gaussians(vout.cpu().numpy(), inverse, n_alive, params.capacity,
-                                         num_valid=num_valid, device=device)
             g = g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True), min=1e-8)
             colors = pal[torch.argmax(g @ text_t.T, dim=-1)]
             dirp = out_dir / "semantic" / str(epoch)
@@ -180,13 +197,14 @@ def train_distill(
     save_interval: int = 10,
     eval_hook=None,
     eval_interval: int = 10,
-    device: Union[str, torch.device] = "cpu",
+    device: Device = None,
 ):
-    """Epochs over the dataset with a random global coordinate shift per
-    item (distill.py:104). The host draws come from one
+    """Epochs over the dataset on `device` (CUDA by default) with a random
+    global coordinate shift per item (distill.py:104). The host draws come from one
     numpy default_rng(seed) in the JAX package's order: each epoch's
     permutation, then per item its seed and its shift. Returns (model, its
     AdamW, the per-step losses as floats)."""
+    device = resolve_device(device)
     model, opt, schedule = make_distill_state(cfg, len(dataset), seed, device=device)
     step = make_distill_step(model, opt, schedule, cfg)
     rng = np.random.default_rng(seed)

@@ -107,7 +107,7 @@ def voxelize_for_net(
     point_feats: np.ndarray,  # [N, F] packed Gaussian features
     voxel_size: float,
     voxel_budget: int,
-    device="cpu",
+    device,
 ):
     """Voxelize points and pad to the voxel budget for the sparse UNet.
     Returns (feats_in [budget, F] and the topology on `device`, inverse [N]

@@ -6,11 +6,13 @@ Exact: the augmentations, the voxelizer, FeatureDataset items (aug on),
 checkpoint format both ways. Within 1e-4 x each leaf's largest magnitude:
 one distill step (gradients, parameters, batch statistics) from the same
 initial weights, and three `train_distill` steps (losses against JAX at
-rtol 1e-4; see that test for what the parameters are held against). The
-losses meet rtol 1e-6 on their own, the schedules rtol 1e-6."""
+rtol 1e-4, each step's gradients against JAX's at the port's weights, the
+final weights against optax replayed; see that test). The losses meet
+rtol 1e-6 on their own, the schedules rtol 1e-6."""
 import pathlib
 import sys
 
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +44,7 @@ from semantic_gaussians_torch.models.unet3d import (  # noqa: E402
 from semantic_gaussians_torch.pipelines import distill as td  # noqa: E402
 from semantic_gaussians_torch.pipelines import eval_segmentation as teval  # noqa: E402
 from semantic_gaussians_torch.pipelines.fusion import save_fused_features  # noqa: E402
+from semantic_gaussians_torch.tools.relu_flips import relu_calls, sign_flips  # noqa: E402
 from semantic_gaussians_torch.utils import losses as tloss  # noqa: E402
 from semantic_gaussians_torch.utils import schedules as tsched  # noqa: E402
 from torch_port_common import jax_params, scene_arrays, torch_params  # noqa: E402
@@ -198,7 +201,7 @@ def test_voxelize_for_net_matches_jax(budget):
     rng = np.random.default_rng(56)
     locs = rng.uniform(0, 1.0, (3000, 3)).astype(np.float32)
     pf = rng.normal(size=(3000, 8)).astype(np.float32)
-    feats_in, topo, inverse, v = teval.voxelize_for_net(locs, pf, 0.05, budget)
+    feats_in, topo, inverse, v = teval.voxelize_for_net(locs, pf, 0.05, budget, "cpu")
     jf, jt, jinv, jv = jeval.voxelize_for_net(locs, pf, 0.05, budget)
     assert v == jv and (v == budget) == (budget == 512)
     np.testing.assert_array_equal(feats_in.numpy(), np.asarray(jf))
@@ -296,7 +299,7 @@ def test_distill_step_matches_jax(scene_files, jax_state):
     jgrads = jax.tree.map(lambda m: np.asarray(m) / 0.1, new_opt[0].mu)  # mu = (1 - b1) g
 
     tcfg = td.DistillConfig(**CFG)
-    tmodel, opt, schedule = _from_jax_weights(variables)(tcfg, 1, 0)
+    tmodel, opt, schedule = _from_jax_weights(variables)(tcfg, 1, 0, device="cpu")
     step = td.make_distill_step(tmodel, opt, schedule, tcfg)
     got = step(*td.item_tensors(item, coords, "cpu"))
     assert abs(float(got) - float(loss)) <= 1e-4 * abs(float(loss))
@@ -310,24 +313,80 @@ def test_distill_step_matches_jax(scene_files, jax_state):
     assert opt.param_groups[0]["lr"] == pytest.approx(1e-3)  # schedule(0)
 
 
+def _jax_gradient_fn(model, monkeypatch):
+    """JAX's jitted gradients of the training loss at given variables on
+    one item, and each ReLU's sign mask, sent to the host from inside the
+    same jitted call (flax.linen.relu, which the JAX UNet calls, is
+    wrapped for the test). Returns grads(variables, c, f, g, gm, m) ->
+    (gradient tree, masks as bool tensors in call order)."""
+    masks, relu = {}, nn.relu
+
+    def recorded(x, calls=[0]):
+        i = calls[0]
+        calls[0] += 1
+        jax.debug.callback(lambda s, i=i: masks.__setitem__(i, np.array(s)), x > 0)
+        return relu(x)
+
+    monkeypatch.setattr(nn, "relu", recorded)
+
+    @jax.jit
+    def grad_fn(params, batch_stats, c, f, g, gm, m):
+        topo = jd.build_topology(c, m)
+
+        def loss_fn(p):
+            out, _ = model.apply({"params": p, "batch_stats": batch_stats}, f, topo, train=True,
+                                 mutable=["batch_stats"])
+            return jloss.cosine_distill_loss(out, g, mask=gm)
+        return jax.grad(loss_fn)(params)
+
+    def grads(variables, *tensors):
+        masks.clear()
+        recorded.__defaults__[0][0] = 0  # a retrace numbers the calls from 0 again
+        out = grad_fn(variables["params"], variables["batch_stats"],
+                      *[jnp.asarray(t.numpy()) for t in tensors])
+        jax.block_until_ready(out)
+        jax.effects_barrier()
+        return out, [torch.from_numpy(masks[i]) for i in range(len(masks))]
+
+    return grads
+
+
+def _port_grads(state, tensors, dtype, masks=None):
+    """The port's gradients of the training loss (MinkUNet14A, train mode)
+    at a state dict on one item, in `dtype`, through `masks` if given;
+    with the ReLU inputs."""
+    c, f, g, gm, m = tensors
+    net = td.mink_unet(56, EMB, "MinkUNet14A")
+    net.load_state_dict(state)
+    net.to(dtype).train()
+    with relu_calls(masks) as pre:
+        out = net(f.to(dtype), build_topology(c, m))
+    tloss.cosine_distill_loss(out, g.to(dtype), mask=gm).backward()
+    return {k: p.grad.float() for k, p in net.named_parameters()}, pre
+
+
 def test_train_distill_matches_jax(scene_files, jax_state, monkeypatch):
     """Three epochs of one augmented scene from JAX's initial weights. The
     same numpy draws (permutation, item seed, global shift) give the same
     three items, and the loss sequence follows JAX's within rtol 1e-4.
 
-    A three-step AdamW trajectory is not compared weight for weight: the
-    first step maps gradient entries near Adam's eps (1e-8) to steps set
-    by rounding noise, later steps build on them, and after three steps
-    the port's own float32 and float64 runs differ by far more than 1e-4
-    of a leaf's max in BN biases (a leaf whose largest value is ~2 lr).
-    On XLA:CPU the JAX package's jitted step also computes the second
-    step's gradients up to 9.6% of a leaf's largest magnitude off the
-    float64 values, where its eager gradients and the port's stay within
-    1.7e-6 and 2.1e-6 (tests/distill_grad_probe.py prints them). So the
-    trajectory is held part by part: each step's gradients against float64 gradients
-    at the same weights, and the final weights against optax's adamw
-    (JAX's optimizer) replayed on the port's own gradients, both within
-    1e-4 x each leaf's largest magnitude."""
+    Each step's gradients are held against the JAX package's, computed
+    (jitted) at the port's weights and item, within 1e-4 x each leaf's
+    largest magnitude. Float32 gradients of this net part by up to ~10% of
+    a leaf's max where a ReLU pre-activation within rounding of zero lands
+    on the other side in one package's sums and not in the other's
+    (semantic_gaussians_torch/tools/relu_flips.py; on XLA:CPU the JAX
+    package's jitted second step has one such flip,
+    tests/distill_grad_probe.py prints it).
+    So JAX's gradients are held against the port run in float64 through
+    JAX's own ReLU masks, the port's float32 gradients against the port in
+    float64 through the port's masks, and the two directly where their
+    masks agree; every flip lies within 1e-5 x its call's largest
+    magnitude of zero. A three-step AdamW trajectory is not compared
+    weight for weight (the first step maps gradient entries near Adam's
+    eps, 1e-8, to steps set by rounding noise): the final weights are held
+    against optax's adamw (JAX's optimizer) replayed on the port's own
+    gradients, within 1e-4 x each leaf's largest magnitude."""
     cfg, state = jax_state
     monkeypatch.setattr(jd, "make_distill_state", lambda *a, **k: state)
     kw = dict(voxel_size=0.05, voxel_budget=BUDGET)
@@ -350,24 +409,40 @@ def test_train_distill_matches_jax(scene_files, jax_state, monkeypatch):
     monkeypatch.setattr(td, "make_distill_state", _from_jax_weights(state[1]))
     model, _, got = td.train_distill(
         tfd.FeatureDataset([scene_files["ply"]], [scene_files["fused"]], **kw),
-        td.DistillConfig(**CFG), seed=0)
+        td.DistillConfig(**CFG), seed=0, device="cpu")
     assert len(got) == len(want) == len(records) == 3 and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
-    ref = td.mink_unet(56, EMB, "MinkUNet14A").double().train()
+    jax_grads = _jax_gradient_fn(state[0], monkeypatch)
     tx = optax.adamw(optax.cosine_decay_schedule(1e-3, 3), weight_decay=0.01)
     params = jax.tree.map(jnp.asarray, state[1]["params"])
     opt_state = tx.init(params)
-    for before, (c, f, g, gm, m), grads in records:
-        ref.load_state_dict(before)
-        ref.zero_grad()
-        out = ref(f.double(), build_topology(c, m))
-        tloss.cosine_distill_loss(out, g.double(), mask=gm).backward()
-        tree = _tree(model, {k: v for k, v in grads.items()})
-        _close_to_leaf_max(tree, _tree(model, {k: p.grad.float() for k, p in ref.named_parameters()}),
-                           "step gradient vs float64")
+    final = {k: v.clone() for k, v in model.state_dict().items()}
+    direct = 0
+    for before, tensors, grads in records:
+        tree = _tree(model, grads)
+        again, pre32 = _port_grads(before, tensors, torch.float32)
+        assert all(torch.equal(again[k], grads[k]) for k in grads)  # the step's own
+        f64, pre64 = _port_grads(before, tensors, torch.float64)
+        model.load_state_dict(before)
+        jg, jmasks = jax_grads(unet_state_to_flax(model), *tensors)
+        assert len(jmasks) == len(pre32) == 25
+        masks32 = [x > 0 for x in pre32]
+        for signs in (pre32, [mk.double() - 0.5 for mk in jmasks]):
+            assert all(fl[2] <= 1e-5 for fl in sign_flips(signs, pre64))
+        through_jax, _ = _port_grads(before, tensors, torch.float64, jmasks)
+        _close_to_leaf_max(_tree(model, through_jax), jg, "JAX's gradients vs the port's "
+                           "float64 through JAX's ReLU masks")
+        through_own, _ = _port_grads(before, tensors, torch.float64, masks32)
+        _close_to_leaf_max(tree, _tree(model, through_own), "the port's gradients vs its "
+                           "float64 through its ReLU masks")
+        if all(torch.equal(a, b) for a, b in zip(masks32, jmasks)):
+            _close_to_leaf_max(tree, jg, "the port's gradients vs JAX's")
+            direct += 1
         updates, opt_state = tx.update(jax.tree.map(jnp.asarray, tree), opt_state, params)
         params = optax.apply_updates(params, updates)
+    assert direct >= 1
+    model.load_state_dict(final)
     _close_to_leaf_max(unet_state_to_flax(model)["params"], params, "weights vs optax replay")
 
 
@@ -376,7 +451,7 @@ def test_distill_loss_decreases(scene_files):
     the port alone."""
     ds = tfd.FeatureDataset([scene_files["ply"]], [scene_files["fused"]], voxel_size=0.05,
                             aug=False, voxel_budget=BUDGET)
-    _, _, losses = td.train_distill(ds, td.DistillConfig(**dict(CFG, epochs=12)))
+    _, _, losses = td.train_distill(ds, td.DistillConfig(**dict(CFG, epochs=12)), device="cpu")
     assert np.isfinite(losses).all()
     assert np.mean(losses[-3:]) < np.mean(losses[:3]) - 0.02, losses
 
@@ -427,7 +502,7 @@ def test_eval_render_hook_matches_jax(scene_files, jax_state, tmp_path):
     jd.save_distill_checkpoint(path, variables)
     tmodel = td.load_distill_model(path, 56, EMB, "MinkUNet14A", "cpu")
     thook = td.make_eval_render_hook(scene_files["ply"], [torch_camera(*args)], text,
-                                     tmp_path / "port", td.DistillConfig(**CFG), **kw)
+                                     tmp_path / "port", td.DistillConfig(**CFG), device="cpu", **kw)
     tdir = thook(2, tmodel)
     assert pathlib.Path(tdir) == tmp_path / "port" / "semantic" / "2"
     got = np.asarray(Image.open(pathlib.Path(tdir) / "0.png"))

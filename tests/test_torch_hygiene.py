@@ -8,6 +8,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -122,6 +123,26 @@ def test_distill_cli_raises_without_cuda(monkeypatch, tmp_path):
     for cpu in (["--device", "cpu"], ["distill.device=cpu"]):
         with pytest.raises(FileNotFoundError, match="no \\(point_cloud.ply, fused .pt\\) pairs"):
             distill.main(args + cpu)
+
+
+@pytest.mark.parametrize("entry", ["make_distill_state", "train_distill",
+                                   "make_eval_render_hook"])
+def test_distill_pipeline_defaults_to_cuda(monkeypatch, tmp_path, entry):
+    """The distill pipeline's functions that make a model or a scene's
+    tensors run on CUDA unless the caller passes a device: without CUDA
+    they raise before any work."""
+    from semantic_gaussians_torch.pipelines import distill as td
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = td.DistillConfig(model_3d="MinkUNet14A", feature_dim=4)
+    call = {
+        "make_distill_state": lambda: td.make_distill_state(cfg, 1),
+        "train_distill": lambda: td.train_distill([], cfg),
+        "make_eval_render_hook": lambda: td.make_eval_render_hook(
+            tmp_path / "none.ply", [], np.zeros((2, 4), np.float32), tmp_path, cfg),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
 
 
 @pytest.mark.parametrize("tool", ["exp_panel", "exp_panel2"])

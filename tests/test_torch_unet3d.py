@@ -5,6 +5,8 @@ maps, sorted keys and permutations, parents, octants) is bit-identical;
 each layer's forward and backward meets rtol 1e-5 / atol 1e-5 (the JAX
 package's own conv test); the whole MinkUNet14A's outputs, updated batch
 stats and gradients are within 1e-4 x each leaf's largest magnitude."""
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -316,6 +318,45 @@ def test_unet_matches_jax(unet_case, train):
     moved = any(np.abs(s).sum() > 0 for s in jax.tree.leaves(
         jax.tree.map(lambda a, b: a - b, stats, c["variables"]["batch_stats"])))
     assert moved == train  # running stats move in training mode only
+
+
+def test_relu_masks_replay_float32_in_float64(unet_case):
+    """tools/relu_flips: recording the ReLU inputs leaves the gradients bit
+    for bit as they were; float64 run through float32's ReLU masks gives
+    float32's gradients within 1e-4 x each leaf's largest magnitude; where
+    float32 and float64 differ in sign, the float64 pre-activation lies
+    within 1e-5 x its call's largest magnitude of zero; and one mask entry
+    forced off does move the gradients."""
+    from semantic_gaussians_torch.tools.relu_flips import relu_calls, sign_flips
+
+    c = unet_case
+
+    def grads(dtype, masks=None, record=True):
+        model = T.mink_unet(8, 16, "MinkUNet14A")
+        model.load_state_dict(T.unet_state_from_flax(c["variables"], model))
+        model.to(dtype).train()
+        with relu_calls(masks) if record else contextlib.nullcontext([]) as pre:
+            out = model(torch.from_numpy(c["x"]).to(dtype), c["tt"])
+        cosine_distill_loss(out, torch.from_numpy(c["gt"]).to(dtype),
+                            mask=torch.from_numpy(c["gt_mask"])).backward()
+        return pre, {k: p.grad.double() for k, p in model.named_parameters()}
+
+    def worst(a, b):
+        return max(float((a[k] - b[k]).abs().max() / b[k].abs().max()) for k in b)
+
+    _, plain = grads(torch.float32, record=False)
+    pre32, g32 = grads(torch.float32)
+    assert len(pre32) == 25  # MinkUNet14A: the stem, 4 + 4 stages, 8 blocks of two
+    assert all(torch.equal(g32[k], plain[k]) for k in plain)
+    pre64, g64 = grads(torch.float64)
+    masks = [x > 0 for x in pre32]
+    _, g64m = grads(torch.float64, masks)
+    assert worst(g32, g64m) <= 1e-4
+    assert all(f[2] <= 1e-5 for f in sign_flips(pre32, pre64))
+    deep = masks[len(masks) // 2].clone()
+    deep.view(-1)[int(torch.argmax(pre32[len(masks) // 2]))] = False
+    _, forced = grads(torch.float64, masks[:len(masks) // 2] + [deep] + masks[len(masks) // 2 + 1:])
+    assert worst(forced, g64m) > 1e-6
 
 
 def test_converter_round_trips_exactly(unet_case):
