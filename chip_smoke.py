@@ -3,9 +3,9 @@
 
 Drives the port's main paths once at full width on one CUDA card (the
 viewer service, RGB training through the train CLI, 2D -> 3D fusion, 3D
-distillation and open-vocabulary evaluation through their CLIs, the
-segment-sum probe tools) and holds each hand-written kernel against its
-plain PyTorch version:
+distillation and open-vocabulary evaluation through their CLIs, the 2D
+models behind the fusion and eval CLIs, the segment-sum probe tools) and
+holds each hand-written kernel against its plain PyTorch version:
 
   1. device: the card's name and power limit, torch and CUDA versions; the
      five kernel sources are built from csrc/ (one nvcc per source, all at
@@ -90,12 +90,35 @@ plain PyTorch version:
      bit for bit against the plain version, then CUDA events over
      back-to-back calls, `device_us`, the host's enqueue time of one call,
      the plain version and bin_gaussians.
+ 14. (run after phase 10) 2D models at their published widths, random
+     weights from SEED, written as checkpoints in their public layouts (SAM ViT-H, CLIP ViT-L/14@336,
+     LSeg ViT-L/16 + DPT with a CLIP ViT-B/32 text tower, a BPE merges file
+     of the label words): each tower at a cut depth (SAM one windowed and
+     one global block at 1024^2, CLIP two blocks, LSeg four blocks with all
+     four taps) on the card and on the CPU, max |card - CPU| over the CPU's
+     largest output <= GAP_FP32 with cuDNN's TF32 off and <= GAP_DEFAULT
+     with torch's defaults; the AMG's logits likewise, and its discrete
+     stage (TIMED_TOP_IOU candidates a view) run on the card's logits on
+     the card and on the CPU: identical annotations. The random SAM's mask
+     decoder is scaled so that its masks pass the AMG's default filters
+     (tools/random_checkpoints.py). Then the fusion CLI with model_2d =
+     samclip, lseg, vlpart (precomputed detections) and vlpart (native
+     detector) on 2 of the ring views each (depth=render, the YAML's AMG
+     thresholds; expand and composite_fwd launched once a view; each run
+     covers some points, LSeg every visited one), the eval CLI in mode
+     pretrained with model_2d = lseg; the masks each AMG stage keeps on the
+     SAMCLIP CLI's views at its thresholds; times: the SAM encoder, an AMG view
+     (device batches, host NMS and region removal) and a SAMCLIP view at
+     lowered thresholds (>= CROPS_FLOOR crops), CLIP crops a second, the
+     per-pixel sum, LSeg single pass and sliding, the text towers, each
+     fusion CLI and eval pretrained a view, peak memory, busy shares.
 Every number is stamped with the card's name and power limit.
 
 Prints one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failure exits non-zero before
 that line. Run from the root of a checkout: python3 chip_smoke.py
 """
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -452,7 +475,11 @@ def main():
         distilled = distill_through_cli(Path(train_tmp), trained["scene"], fused, dev, card)
         evaluated = eval_through_cli(Path(train_tmp), trained["scene"], fused, distilled, dev,
                                      card)
-    del fused["state"]
+        del fused["state"]
+
+        # ------------------------------------------------------------ 14
+        models_2d = models_2d_phase(Path(train_tmp), trained["scene"], fused, evaluated, dev,
+                                    card)
 
     # ---------------------------------------------------------------- 11
     tools = run_probe_tools()
@@ -527,7 +554,7 @@ def main():
             e["training_view"] = step_times["composite"]["composite_fwd"]
     paths = {"viewer": viewer_launches, "train": trained["launches"],
              "fusion": fused["launches"], "distill": distilled["launches"],
-             "eval": evaluated["launches"],
+             "eval": evaluated["launches"], **models_2d["launches"],
              "tools": tools["launches"]}
     for e in kernel_lines:
         by_path = {name: counts[e["name"]] for name, counts in paths.items()}
@@ -2139,7 +2166,545 @@ def eval_through_cli(tmpdir, scene, fused, distilled, dev, card):
     print(json.dumps({"card": card, "eval": dict(
         miou=miou, macc={n: r[1] for n, r in results.items()}, eval_view_ms=view_ms,
         launches=launches, composite_fwd_by_channels={str(c): v for c, v in widths.items()})}))
-    return dict(launches=launches, miou=miou, view_ms=view_ms)
+    return dict(launches=launches, miou=miou, view_ms=view_ms, label_dir=label_dir, gts=gts,
+                labeled_pixels=round(pixels * (1 - unlabeled)))
+
+
+# ------------------------------------------------------------------ 2D models
+# The towers at their published widths, random weights from SEED: SAM ViT-H
+# at 1024^2, CLIP ViT-L/14@336 (image and text towers), LSeg ViT-L/16 with
+# its DPT decoder and the bundled CLIP ViT-B/32 text tower.
+SAM_2D = dict()  # SamConfig.vit_h()
+CLIP_TEXT_2D = dict(width=768, layers=12, heads=12, embed_dim=768)
+CLIP_VISION_2D = dict(image_size=336, patch=14, width=1024, layers=24, heads=16, embed_dim=768)
+LSEG_2D = dict()  # LSegConfig()
+LSEG_TEXT_2D = dict(width=512, layers=12, heads=8, embed_dim=512)
+# Card against CPU: the same widths at a cut depth (SAM one windowed and one
+# global block, CLIP two blocks, LSeg four with all four taps).
+CUT_SAM = dict(depth=2, global_blocks=(1,))
+CUT_CLIP_LAYERS = 2
+CUT_LSEG = dict(layers=4, taps=(0, 1, 2, 3))
+# max |card - CPU| / max |CPU| of a tower's outputs: in float32 (cuDNN's TF32
+# convolutions off for the check) and with torch's defaults (TF32 convs)
+GAP_FP32, GAP_DEFAULT = 1e-4, 2e-2
+VIEWS_2D = 2  # the 2D-model fusion runs fuse 2 of the 8 ring views (every_k_views=4)
+CROPS_FLOOR = 64  # CLIP crops a view in the timed SAMCLIP run
+TIMED_TOP_IOU = 128  # its IoU threshold: the view's 128th-best candidate IoU
+
+
+def gap(card, cpu):
+    """max |card - cpu| over max |cpu|."""
+    cpu = cpu.float()
+    return float((card.float().cpu() - cpu).abs().max() / cpu.abs().max().clamp(min=1e-30))
+
+
+def card_gaps(name, model, args_fn, dev):
+    """One tower (on the CPU) and its copy on the card on the same inputs
+    (args_fn(device) -> forward arguments): the largest gap of its outputs
+    in float32 and with the defaults; fails past the gates."""
+    import copy
+
+    import torch
+
+    as_tuple = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
+    cudnn = torch.backends.cudnn
+    with torch.inference_mode():
+        want = as_tuple(model(*args_fn("cpu")))
+        card = copy.deepcopy(model).to(dev)
+        args = args_fn(dev)
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            fp32 = as_tuple(card(*args))
+        default = as_tuple(card(*args))
+    out = dict(fp32=max(gap(a, b) for a, b in zip(fp32, want)),
+               default=max(gap(a, b) for a, b in zip(default, want)))
+    print(f"card vs CPU, {name}: float32 {out['fp32']:.3g}, defaults {out['default']:.3g} "
+          f"of the CPU's largest magnitude")
+    if not (out["fp32"] <= GAP_FP32 and out["default"] <= GAP_DEFAULT):
+        fail(f"{name}: card vs CPU {out} (gates {GAP_FP32} float32, {GAP_DEFAULT} defaults)")
+    return out
+
+
+def ring_image(scene, i=0):
+    """Ring view i resized to the fusion configs' 648x484 (PIL bilinear)."""
+    import numpy as np
+    from PIL import Image
+
+    img = Image.open(str(scene / "train" / f"r_{i}.png")).convert("RGB")
+    return np.asarray(img.resize((FUSE_W, FUSE_H), Image.BILINEAR))
+
+
+class _PointDecoder:
+    """Sam.predict_points as a module call (for card_gaps)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __call__(self, emb, pts, labels):
+        return self.model.predict_points(emb, pts, labels)
+
+    def to(self, dev):
+        return _PointDecoder(self.model.to(dev))
+
+    def __deepcopy__(self, memo):
+        import copy
+
+        return _PointDecoder(copy.deepcopy(self.model, memo))
+
+
+def check_towers_card_vs_cpu(scene, bpe, dev):
+    """Phase 14a: each tower at its full width and a cut depth on the card
+    and on the CPU with the same weights and inputs; the AMG's logits card
+    against CPU, and its discrete stage run twice on the card's logits."""
+    import torch
+
+    from semantic_gaussians_torch.data.scannet_constants import SCANNET20_CLASS_LABELS
+    from semantic_gaussians_torch.models import automask, clip_text, clip_vision, lseg, sam
+    from semantic_gaussians_torch.models.common import random_init_
+    from semantic_gaussians_torch.tools.random_checkpoints import sam_model
+
+    img = ring_image(scene)
+    gaps = {}
+    cfg = sam.SamConfig(**dict(SAM_2D, **CUT_SAM))
+    cut_sam = sam_model(cfg, seed=SEED)
+    gaps["sam_encoder"] = card_gaps(
+        "SAM ViT-H encoder (1 windowed + 1 global block, 1024^2)", cut_sam.image_encoder,
+        lambda d: (sam.preprocess_image(img, cfg.img_size, d)[0][None],), dev)
+    gen = automask.SamAutoMask(cut_sam)
+    emb, rhw = gen.embed(img)
+    pts = gen.prompts((FUSE_H, FUSE_W))[:64, None]
+    labels = torch.ones((64, 1), dtype=torch.int32)
+    gaps["sam_decoder"] = card_gaps(
+        "SAM decoder (64 point prompts: logits, IoU)", _PointDecoder(cut_sam),
+        lambda d: (emb.to(d), pts.to(d), labels.to(d)), dev)
+    gaps["amg_logits"] = _resampled_gap(cut_sam, emb, pts, labels, rhw, dev)
+    gaps["amg_discrete"] = _amg_discrete_twice(cut_sam, img, dev)
+    del cut_sam, gen
+
+    vis = random_init_(clip_vision.CLIPVisionTower(**dict(CLIP_VISION_2D, layers=CUT_CLIP_LAYERS)),
+                       seed=SEED)
+    crops = torch.rand((8, vis.image_size, vis.image_size, 3),
+                       generator=torch.Generator().manual_seed(SEED))
+    gaps["clip_vision"] = card_gaps("CLIP ViT-L/14@336 image tower (2 blocks, 8 crops)", vis,
+                                    lambda d: (crops.to(d),), dev)
+    ids = torch.from_numpy(clip_text.tokenize(list(SCANNET20_CLASS_LABELS), str(bpe)))
+    for key, kw, name in (("clip_text_l14", CLIP_TEXT_2D, "CLIP ViT-L/14 text tower"),
+                          ("clip_text_b32", LSEG_TEXT_2D, "CLIP ViT-B/32 text tower")):
+        tower = random_init_(clip_text.CLIPTextTower(**dict(kw, layers=CUT_CLIP_LAYERS)),
+                             seed=SEED)
+        gaps[key] = card_gaps(f"{name} (2 blocks, 20 labels)", tower, lambda d: (ids.to(d),),
+                              dev)
+    net = random_init_(lseg.LSegNet(lseg.LSegConfig(**dict(LSEG_2D, **CUT_LSEG))),
+                       seed=SEED).eval()
+    x = (torch.tensor(lseg._resize_image_np(img, 384, 544)).float() / 255.0 - 0.5) / 0.5
+    gaps["lseg"] = card_gaps("LSeg ViT-L/16 + DPT (4 blocks, 4 taps, 384x544)", net,
+                             lambda d: (x[None].to(d),), dev)
+    return gaps
+
+
+def _resampled_gap(model, emb, pts, labels, rhw, dev):
+    """The decoder's logits resampled to 648x484, card against CPU in
+    float32 (gated) and with the defaults, and the pixels whose sign
+    differs in each (not gated: the discrete stage is held on shared
+    logits)."""
+    import copy
+
+    import torch
+
+    from semantic_gaussians_torch.models.automask import resample_logits
+
+    def logits(m, d):
+        lg = m.predict_points(emb.to(d), pts.to(d), labels.to(d))[0][:, 1:]
+        return resample_logits(lg, (FUSE_H, FUSE_W), rhw)
+
+    cudnn = torch.backends.cudnn
+    with torch.inference_mode():
+        up = logits(model, "cpu")
+        card = copy.deepcopy(model).to(dev)
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            fp32 = logits(card, dev).cpu()
+        default = logits(card, dev).cpu()
+    out = dict(fp32=gap(fp32, up), default=gap(default, up),
+               sign_flips_fp32=int(((fp32 > 0) != (up > 0)).sum()),
+               sign_flips_default=int(((default > 0) != (up > 0)).sum()), pixels=up.numel())
+    print(f"card vs CPU, AMG logits at {FUSE_W}x{FUSE_H} (64 points): {out}")
+    if not (out["fp32"] <= GAP_FP32 and out["default"] <= GAP_DEFAULT):
+        fail(f"AMG logits card vs CPU {out}")
+    return out
+
+
+def _amg_discrete_twice(model, img, dev):
+    """The 32x32 grid through the cut SAM on the card; each batch's filters
+    run on the card's logits on the card and again on the CPU, then both
+    candidate sets through NMS and region removal (the same host code on the
+    same arrays): the annotations must be identical. As in the timed view,
+    the IoU filter keeps the TIMED_TOP_IOU best candidates, stability keeps
+    all and NMS at 1.0 suppresses none, so that region removal and the
+    second NMS see every kept mask."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from semantic_gaussians_torch.models import automask
+
+    gen = automask.SamAutoMask(copy.deepcopy(model).to(dev))
+    keys = ("masks", "iou", "stab", "boxes")
+    sides = {s: [{k: [] for k in keys} for _ in range(3)] for s in ("card", "cpu")}
+    with torch.inference_mode():
+        emb, rhw = gen.embed(img)
+        pts = gen.prompts((FUSE_H, FUSE_W))
+        bsz = gen.amg.points_per_batch
+
+        def batches():
+            for i0 in range(0, len(pts), bsz):
+                yield gen.decode_batch(emb, pts[i0: i0 + bsz], (FUSE_H, FUSE_W), rhw)
+
+        ious = torch.cat([iou.flatten() for _, iou in batches()]).sort().values
+        gen.amg = automask.AutoMaskConfig(pred_iou_thresh=float(ious[-TIMED_TOP_IOU - 1]),
+                                          stability_score_thresh=-1.0, box_nms_thresh=1.0)
+        for lg, iou in batches():
+            for side, args in (("card", (lg, iou)), ("cpu", (lg.cpu(), iou.cpu()))):
+                for sc, arrays in enumerate(gen.select(*args, len(lg))):
+                    for k, a in zip(keys, arrays):
+                        sides[side][sc][k].append(a)
+    for sc in range(3):
+        for k in keys:
+            if not all(np.array_equal(a, b) for a, b in zip(sides["card"][sc][k],
+                                                            sides["cpu"][sc][k])):
+                fail(f"AMG filters: {k} of scale {sc} differ between the card and the CPU")
+    anns = {side: gen.annotations(per_scale) for side, per_scale in sides.items()}
+    for a_set, b_set in zip(anns["card"], anns["cpu"]):
+        same = len(a_set) == len(b_set) and all(
+            np.array_equal(a["segmentation"], b["segmentation"])
+            and all(a[k] == b[k] for k in ("bbox", "area", "predicted_iou", "stability_score"))
+            for a, b in zip(a_set, b_set))
+        if not same:
+            fail("AMG annotations differ between the card's and the CPU's discrete stage")
+    out = dict(candidates_by_scale=[sum(len(m) for m in sc["masks"]) for sc in sides["card"]],
+               annotations_merged_s_m_l=[len(a) for a in anns["card"]])
+    print(f"AMG discrete stage on the card's logits, run on the card and on the CPU: "
+          f"identical {out}")
+    return out
+
+
+def write_2d_checkpoints(root):
+    """Phase 14b: every tower at its published width with random weights
+    from SEED, saved in its public layout where the CLIs read it, and a BPE
+    merges file of the label words. Returns the paths and the CPU models."""
+    from semantic_gaussians_torch.data.scannet_constants import (
+        COCOMAP_CLASS_LABELS, SCANNET20_CLASS_LABELS,
+    )
+    from semantic_gaussians_torch.models.lseg import LSegConfig
+    from semantic_gaussians_torch.models.sam import SamConfig
+    from semantic_gaussians_torch.tools import random_checkpoints as rc
+
+    t0 = time.perf_counter()
+    paths = dict(sam=root / "sam_vit_h.pth", clip=root / "clip_vit_l14_336.pt",
+                 lseg=root / "lseg_demo.ckpt", bpe=root / "bpe_random.txt.gz")
+    models = dict(sam=rc.write_sam(paths["sam"], SamConfig(**SAM_2D), seed=SEED))
+    models["clip_text"], models["clip_vision"] = rc.write_clip(
+        paths["clip"], dict(CLIP_TEXT_2D), dict(CLIP_VISION_2D), seed=SEED)
+    models["lseg"], models["lseg_text"] = rc.write_lseg(
+        paths["lseg"], LSegConfig(**LSEG_2D), dict(LSEG_TEXT_2D), seed=SEED)
+    words = {w for lab in SCANNET20_CLASS_LABELS + COCOMAP_CLASS_LABELS for w in lab.split()}
+    rc.write_bpe(paths["bpe"], sorted(words | {"a", "other", "background"}))
+    sizes = {k: round(p.stat().st_size / 2**30, 3) for k, p in paths.items()}
+    print(f"2D checkpoints written in {time.perf_counter() - t0:.1f} s (GiB): {sizes}")
+    return paths, models
+
+
+def fuse_2d_through_cli(name, tmpdir, scene, fused, overrides, dev):
+    """One 2D-model fusion main path: the fusion CLI on VIEWS_2D ring views
+    with depth=render, its launch counts set to 0 just before and read just
+    after. Checks the fused .pt and returns its numbers."""
+    import torch
+
+    from semantic_gaussians_torch.cli import fusion as fusion_cli
+    from semantic_gaussians_torch.config.config import default_config_dir
+    from semantic_gaussians_torch.pipelines.fusion import load_fused_features
+
+    out = tmpdir / f"fused_{name}"
+    args = [str(default_config_dir() / "fusion_scannet.yaml"), f"scene.scene_path={scene}",
+            f"model.model_dir={fused['model_dir']}", f"fusion.out_dir={out}",
+            "fusion.depth=render", f"fusion.every_k_views={TRAIN_VIEWS // VIEWS_2D}",
+            f"fusion.img_dim=[{FUSE_W},{FUSE_H}]", f"fusion.visibility_threshold={VISIBILITY}",
+            f"fusion.device={dev.type}", *overrides]
+    t0 = time.perf_counter()
+    summary, launches = count_launches(f"fusion {name}", lambda: fusion_cli.main(args),
+                                       ("expand", "composite_fwd"))
+    wall = time.perf_counter() - t0
+    for k in ("expand", "composite_fwd"):  # one depth render a view
+        if launches[k] != VIEWS_2D:
+            fail(f"fusion {name} launched {k} {launches[k]} times for {VIEWS_2D} views")
+    feats, visited = load_fused_features(summary["out_path"], device=dev)
+    norms = feats[visited].norm(dim=-1)
+    if int(visited.sum()) != summary["visited"] or summary["views"] != VIEWS_2D:
+        fail(f"fusion {name}: the .pt does not reload to the CLI's summary {summary}")
+    if not torch.isfinite(feats).all() or bool((norms > 1 + 1e-3).any()):
+        fail(f"fusion {name}: fused features non-finite or longer than a unit vector")
+    res = dict(cli_wall_s=wall, s_per_view=wall / VIEWS_2D, visited=summary["visited"],
+               covered=int((norms > 1e-6).sum()), mean_norm_covered=float(
+                   norms[norms > 1e-6].mean()) if bool((norms > 1e-6).any()) else 0.0,
+               dim=feats.shape[1], launches=launches)
+    print(f"fusion CLI, model_2d={name}: {json.dumps(res)}")
+    return res, launches
+
+
+def native_detections(scene, towers_cfg, dev):
+    """make_predictor's native VLPart detector on the fusion CLI's views:
+    the AMG proposals its checkpoint's CLIP image tower classifies, those
+    not classed as background, and those that pass VLPart's box
+    threshold. Fails unless every view has a proposal."""
+    from semantic_gaussians_torch.models.predictors import load_image, make_predictor
+
+    pred = make_predictor("vlpart", towers_cfg, dev)
+    out = {}
+    for i in range(0, TRAIN_VIEWS, TRAIN_VIEWS // VIEWS_2D):
+        _, scores, _ = pred.detector(load_image(str(scene / "train" / f"r_{i}.png")))
+        out[f"r_{i}"] = dict(proposals=pred.detector.automask.counts["merged"]["annotations"],
+                             not_background=len(scores),
+                             max_score=float(scores.max()) if len(scores) else None,
+                             passing=int((scores >= pred.box_threshold).sum()))
+        if out[f"r_{i}"]["proposals"] == 0:
+            fail(f"native VLPart detector: no AMG proposal on view r_{i}")
+    print(f"native VLPart detector (box threshold {pred.box_threshold}): {json.dumps(out)}")
+    return out
+
+
+def paths_2d(tmpdir, scene, fused, evaluated, ckpt, dev):
+    """Phase 14c: the 2D-model main paths through their CLIs: SAMCLIP,
+    LSeg and VLPart (precomputed and native detections) fusion, each at the
+    fusion YAML's AMG thresholds, and the eval CLI in mode pretrained with
+    eval.model_2d=lseg."""
+    import numpy as np
+
+    from semantic_gaussians_torch.cli import eval_segmentation as eval_cli
+    from semantic_gaussians_torch.config.config import default_config_dir
+    from semantic_gaussians_torch.data.scannet_constants import COCOMAP_CLASS_LABELS
+    from semantic_gaussians_torch.models.vlpart import save_detections
+
+    towers_cfg = dict(sam_checkpoint=str(ckpt["sam"]), clip_checkpoint=str(ckpt["clip"]),
+                      bpe_path=str(ckpt["bpe"]), vocabulary=list(COCOMAP_CLASS_LABELS))
+    towers = [f"fusion.{k}={v}" for k, v in towers_cfg.items() if k != "vocabulary"]
+    towers.append("fusion.vocabulary=[" + ",".join(COCOMAP_CLASS_LABELS) + "]")
+    det_dir = tmpdir / "detections"
+    rng = np.random.default_rng(SEED)
+    for i in range(TRAIN_VIEWS):  # six boxes a view on a 3 x 2 grid, in the image's frame
+        x0, y0 = np.meshgrid(np.arange(3) * WIDTH / 3, np.arange(2) * HEIGHT / 2)
+        boxes = np.stack([x0.ravel() + 8, y0.ravel() + 8, x0.ravel() + WIDTH / 3 - 8,
+                          y0.ravel() + HEIGHT / 2 - 8], -1)
+        save_detections(det_dir / f"r_{i}.npz", boxes, rng.uniform(0.35, 0.95, 6),
+                        rng.integers(0, len(COCOMAP_CLASS_LABELS), 6))
+    runs = {
+        "samclip": ["fusion.model_2d=samclip", *towers],
+        "lseg": ["fusion.model_2d=lseg", f"fusion.lseg_checkpoint={ckpt['lseg']}",
+                 f"fusion.bpe_path={ckpt['bpe']}"],
+        "vlpart": ["fusion.model_2d=vlpart", f"fusion.detections_dir={det_dir}", *towers],
+        "vlpart_native": ["fusion.model_2d=vlpart", *towers],
+    }
+    out, launches = {}, {}
+    for name, overrides in runs.items():
+        out[name], launches[f"fusion_{name}"] = fuse_2d_through_cli(
+            name, tmpdir, scene, fused, overrides, dev)
+    clip_dim, lseg_dim = CLIP_TEXT_2D["embed_dim"], LSEG_TEXT_2D["embed_dim"]
+    for name, dim in (("samclip", clip_dim), ("lseg", lseg_dim), ("vlpart", clip_dim)):
+        if out[name]["dim"] != dim:
+            fail(f"fusion {name}: {out[name]['dim']}-d features, expected {dim}")
+    if out["lseg"]["covered"] != out["lseg"]["visited"]:
+        fail(f"fusion lseg: LSeg covers every pixel, got {out['lseg']}")
+    for name in ("samclip", "vlpart"):  # masks pass the YAML's filters / boxes given
+        if out[name]["covered"] == 0:
+            fail(f"fusion {name}: no point covered by a mask {out[name]}")
+    out["vlpart_native"]["detector"] = native_detections(scene, towers_cfg, dev)
+
+    args = [str(default_config_dir() / "eval.yaml"), f"scene.scene_path={scene}",
+            f"model.model_dir={fused['model_dir']}", "eval.eval_mode=pretrained",
+            "eval.model_2d=lseg", f"eval.lseg_checkpoint={ckpt['lseg']}",
+            f"eval.bpe_path={ckpt['bpe']}", f"eval.label_dir={evaluated['label_dir']}",
+            f"eval.width={FUSE_W}", f"eval.height={FUSE_H}", f"fusion.embedding_dim={lseg_dim}",
+            f"eval.log_file={tmpdir / 'eval_2d.log'}", f"eval.device={dev.type}"]
+    t0 = time.perf_counter()
+    (miou, macc, conf), launches["eval_pretrained"] = count_launches(
+        "eval pretrained", lambda: eval_cli.main(args), ())
+    wall = time.perf_counter() - t0
+    views = len(evaluated["gts"])
+    if not (0.0 <= miou <= 1.0) or int(conf.sum()) != evaluated["labeled_pixels"]:
+        fail(f"eval pretrained lseg: mIoU {miou}, {int(conf.sum())} pixels counted")
+    out["eval_pretrained_lseg"] = dict(miou=miou, macc=macc, cli_wall_s=wall,
+                                       s_per_view=wall / views, views=views)
+    print(f"eval CLI, pretrained, model_2d=lseg: {json.dumps(out['eval_pretrained_lseg'])}")
+    return out, launches
+
+
+def peak_gib(fn):
+    """fn() and the peak device memory it allocated above what was
+    allocated before it (the earlier phases' tensors and the weights stay
+    out), GiB."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def weights_gib(module):
+    return sum(t.numel() * t.element_size() for t in module.state_dict().values()) / 2**30
+
+
+def time_2d(scene, ckpt, models, dev, card):
+    """Phase 14d: the towers' times on the card after warm-up (CUDA events
+    for device calls, the host clock for calls that end on the host), the
+    device-busy share of a SAMCLIP and an LSeg view, and peak memory."""
+    import numpy as np
+    import torch
+
+    from semantic_gaussians_torch.data.scannet_constants import SCANNET20_CLASS_LABELS
+    from semantic_gaussians_torch.models import automask, clip_text, clip_vision, lseg, sam
+    from semantic_gaussians_torch.models.samclip import (
+        SAMCLIPPredictor, pad_square_crop, sum_crop_features,
+    )
+
+    img = ring_image(scene)
+    path = str(scene / "train" / "r_0.png")
+    t = {"card": card, "precision": dict(
+        matmul_tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_tf32=torch.backends.cudnn.allow_tf32, dtype="float32")}
+    sam_model = models.pop("sam").to(dev)
+    t["weights_gib"] = {k: weights_gib(m) for k, m in models.items()}
+    t["weights_gib"]["sam"] = weights_gib(sam_model)
+    x, rhw = sam.preprocess_image(img, sam_model.cfg.img_size, dev)
+    with torch.inference_mode():
+        t["sam_encoder_ms"] = cuda_ms(lambda: sam_model.encode_image(x[None]), 5)
+        _, t["sam_encoder_call_peak_gib"] = peak_gib(lambda: sam_model.encode_image(x[None]))
+        t["sam_encoder_profile"] = profile(lambda: sam_model.encode_image(x[None]))
+
+    # The timed SAMCLIP view: IoU threshold at the view's TIMED_TOP_IOU-th
+    # best candidate, stability and NMS keeping all (the random SAM's masks
+    # follow its image embedding more than the point prompts, so at the
+    # YAML's NMS threshold a set keeps one or a few).
+    probe = automask.SamAutoMask(sam_model, automask.AutoMaskConfig(
+        pred_iou_thresh=-1e9, stability_score_thresh=-1.0))
+    ious = np.sort(np.concatenate([np.concatenate(sc["iou"]) for sc in probe.candidates(img)]))
+    amg = automask.AutoMaskConfig(pred_iou_thresh=float(ious[-TIMED_TOP_IOU - 1]),
+                                  stability_score_thresh=-1.0, box_nms_thresh=1.0)
+    clip_enc = clip_vision.CLIPImageEncoder(models["clip_vision"], device=dev)
+    pred = SAMCLIPPredictor(sam_model=sam_model, clip_encoder=clip_enc, amg=amg, device=dev)
+    gen = pred.mask_generator
+    t["timed_amg"] = dataclasses.asdict(amg)
+
+    # The SAMCLIP fusion CLI's views at its (the YAML's default) AMG
+    # thresholds: the masks each stage keeps.
+    yaml_gen = automask.SamAutoMask(sam_model)
+    t["amg_yaml_counts"] = {}
+    for i in range(0, TRAIN_VIEWS, TRAIN_VIEWS // VIEWS_2D):
+        view = pred.prepare_image(str(scene / "train" / f"r_{i}.png"), (FUSE_W, FUSE_H))
+        yaml_gen.generate((view * 255).astype(np.uint8))
+        t["amg_yaml_counts"][f"r_{i}"] = yaml_gen.counts
+        print(f"AMG at the YAML's thresholds, view r_{i}: {json.dumps(yaml_gen.counts)}")
+
+    def amg_parts():
+        marks = [time.perf_counter()]
+        per_scale = gen.candidates(img)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        anns = gen.annotations(per_scale)
+        marks.append(time.perf_counter())
+        return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])], anns
+
+    amg_parts()
+    runs = [amg_parts() for _ in range(2)]
+    anns = sorted(runs[-1][1][0], key=lambda a: a["area"], reverse=True)
+    t["amg_timed_counts"] = gen.counts
+    print(f"AMG at the timed thresholds, view r_0: {json.dumps(gen.counts)}")
+    t["amg_view_ms"] = dict(
+        device_batches_ms=statistics.median(r[0][0] for r in runs),
+        host_nms_regions_ms=statistics.median(r[0][1] for r in runs),
+        masks_kept_merged_s_m_l=[len(a) for a in runs[-1][1]])
+    if len(anns) < CROPS_FLOOR:
+        fail(f"timed SAMCLIP view: {len(anns)} crops, fewer than {CROPS_FLOOR}")
+    img01 = img.astype(np.float32) / 255.0
+    with torch.inference_mode():
+        crops = torch.stack([pad_square_crop(img01, a["segmentation"], a["bbox"],
+                                             clip_enc.tower.image_size, dev) for a in anns[:64]])
+        clip_ms = cuda_ms(lambda: clip_enc.encode(crops), 5)
+        _, t["clip_vision_call_peak_gib"] = peak_gib(lambda: clip_enc.encode(crops))
+        t["clip_crops_per_s"] = 64 / clip_ms * 1e3
+        t["clip_batch64_ms"] = clip_ms
+        embs = pred.crop_embeddings(img01, anns)
+        masks = torch.from_numpy(np.stack([a["segmentation"] for a in anns])).to(dev)
+        t["per_pixel_sum_ms"] = cuda_ms(lambda: sum_crop_features(masks, embs), 10)
+        t["per_pixel_sum_masks"] = len(anns)
+
+    def samclip_view():
+        f = pred.extract_image_feature(path, (FUSE_W, FUSE_H))
+        torch.cuda.synchronize()
+        return f
+
+    feat = samclip_view()
+    norms = np.linalg.norm(feat, axis=-1)
+    if feat.shape != (FUSE_H, FUSE_W, clip_enc.embedding_dim) or not np.isfinite(feat).all() or not (
+            np.abs(norms[norms > 1e-6] - 1) < 1e-3).all() or not (norms > 1e-6).any():
+        fail(f"SAMCLIP view: shape {feat.shape}, not unit-norm where covered")
+    t["samclip_view_s"] = host_ms(samclip_view, 1) / 1e3
+    t["samclip_view_crops"] = len(anns)
+    t["samclip_view_covered_share"] = float((norms > 1e-6).mean())
+    t["samclip_view_profile"] = profile(samclip_view)
+    del pred, gen, probe, clip_enc, masks, embs, crops, feat, x, sam_model
+    torch.cuda.empty_cache()
+
+    text_l14 = clip_text.CLIPTextEncoder(tower=models["clip_text"], bpe_path=str(ckpt["bpe"]),
+                                         device=dev)
+    text_b32 = clip_text.CLIPTextEncoder(tower=models["lseg_text"], bpe_path=str(ckpt["bpe"]),
+                                         device=dev)
+    labels = list(SCANNET20_CLASS_LABELS)
+    for key, enc in (("clip_text_l14", text_l14), ("clip_text_b32", text_b32)):
+        feats = enc.extract_text_feature(labels)
+        if feats.shape != (len(labels), enc.embedding_dim) or not np.allclose(
+                np.linalg.norm(feats, axis=-1), 1.0, atol=1e-4):
+            fail(f"{key}: text features {feats.shape} not unit rows")
+        t[f"{key}_ms"] = host_ms(lambda enc=enc: enc.extract_text_feature(labels), 5)
+        _, t[f"{key}_call_peak_gib"] = peak_gib(lambda enc=enc: enc.extract_text_feature(labels))
+
+    lp = lseg.LSegPredictor(net=models.pop("lseg").to(dev), text_encoder=text_b32, device=dev)
+    for mode, sliding in (("single", False), ("sliding", True)):
+        def view(sliding=sliding):
+            f = lp.extract_image_feature(path, (FUSE_W, FUSE_H), sliding=sliding)
+            torch.cuda.synchronize()
+            return f
+
+        f = view()
+        if f.shape != (FUSE_H, FUSE_W, lp.embedding_dim) or not np.allclose(
+                np.linalg.norm(f, axis=-1), 1.0, atol=1e-3):
+            fail(f"LSeg {mode}: {f.shape}, not unit-norm")
+        t[f"lseg_{mode}_ms"] = host_ms(view, 5)
+        _, t[f"lseg_{mode}_call_peak_gib"] = peak_gib(view)
+    t["lseg_single_profile"] = profile(lambda: lp.extract_image_feature(path, (FUSE_W, FUSE_H)))
+    del lp, text_l14, text_b32
+    torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "models_2d_times": t}, default=str))
+    return t
+
+
+def models_2d_phase(tmpdir, scene, fused, evaluated, dev, card):
+    """Phase 14: the 2D models (see the module docstring)."""
+    t0 = time.perf_counter()
+    ckpt, models = write_2d_checkpoints(tmpdir / "ckpt_2d")
+    gaps = check_towers_card_vs_cpu(scene, ckpt["bpe"], dev)
+    paths, launches = paths_2d(tmpdir, scene, fused, evaluated, ckpt, dev)
+    times = time_2d(scene, ckpt, models, dev, card)
+    for name, r in paths.items():
+        if name.startswith(("samclip", "lseg", "vlpart")):
+            times[f"fusion_{name}_s_per_view"] = r["s_per_view"]
+    times["eval_pretrained_lseg_s_per_view"] = paths["eval_pretrained_lseg"]["s_per_view"]
+    wall = time.perf_counter() - t0
+    print(json.dumps({"card": card, "models_2d": dict(
+        phase_s=wall, card_vs_cpu=gaps, paths=paths)}, default=str))
+    return dict(launches=launches, gaps=gaps, paths=paths, times=times, phase_s=wall)
 
 
 def run_probe_tools():

@@ -102,7 +102,7 @@ def main(argv=None) -> dict:
                   else COCOMAP_CLASS_LABELS)
         tmp = (cfg.get("eval") or {}).get("text_model_path")
         if tmp:
-            enc = TorchCLIPTextEncoder(tmp, dcfg.feature_dim)
+            enc = TorchCLIPTextEncoder(tmp, dcfg.feature_dim, device=device)
         else:
             print("WARNING: no local CLIP checkpoint; random text features")
             enc = RandomFeatureProvider(dcfg.feature_dim)

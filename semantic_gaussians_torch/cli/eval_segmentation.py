@@ -102,9 +102,9 @@ def main(argv=None):
     # Text features; eval.model_2d selects a provider used for both the text
     # and the `pretrained` mode's per-view image features.
     if e.get("model_2d"):
-        enc = make_predictor(e.model_2d, e)
+        enc = make_predictor(e.model_2d, e, device)
     elif e.get("text_model_path"):
-        enc = TorchCLIPTextEncoder(e.text_model_path, dim)
+        enc = TorchCLIPTextEncoder(e.text_model_path, dim, device=device)
     else:
         print("WARNING: no local CLIP checkpoint; using random text features")
         enc = RandomFeatureProvider(dim)

@@ -67,7 +67,7 @@ def main(argv=None) -> dict:
     cameras = [realize_camera(c, with_image=False) for c in scene.train_cameras]
     image_paths = [c.image_path for c in scene.train_cameras]
     params, alive = load_model(cfg, device)
-    provider = make_predictor(f.get("model_2d", "precomputed"), f)
+    provider = make_predictor(f.get("model_2d", "precomputed"), f, device)
     fcfg = FusionConfig(
         img_dim=tuple(f.get("img_dim", (648, 484))),
         every_k_views=int(f.get("every_k_views", 5)),

@@ -1,6 +1,9 @@
-"""Port hygiene: the package and chip_smoke.py import no JAX; the package
-imports with neither triton nor nvcc; the entry points refuse to run
-without CUDA unless the CPU was asked for; a failed kernel build raises."""
+"""Port hygiene: the package and chip_smoke.py import no JAX, and none of
+the packages the card's machine lacks (transformers, regex, ftfy,
+torchvision, timm, safetensors, segment_anything, clip), not even lazily;
+the package imports with neither triton nor nvcc; the entry points and the
+2D providers refuse to run without CUDA unless the CPU was asked for; a
+failed kernel build raises."""
 import ast
 import os
 import pathlib
@@ -14,7 +17,10 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "semantic_gaussians_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "semantic_gaussians_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "semantic_gaussians_tpu",
+             # absent where the port runs
+             "transformers", "regex", "ftfy", "torchvision", "timm", "safetensors",
+             "segment_anything", "clip")
 
 
 def _sources():
@@ -141,6 +147,32 @@ def test_distill_pipeline_defaults_to_cuda(monkeypatch, tmp_path, entry):
         "make_eval_render_hook": lambda: td.make_eval_render_hook(
             tmp_path / "none.ply", [], np.zeros((2, 4), np.float32), tmp_path, cfg),
     }[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+
+
+@pytest.mark.parametrize("provider", ["CLIPTextEncoder", "CLIPImageEncoder", "SAMCLIPPredictor",
+                                      "VLPartPredictor", "LSegPredictor", "TorchCLIPTextEncoder",
+                                      "make_predictor"])
+def test_2d_providers_raise_without_cuda(monkeypatch, tmp_path, provider):
+    """Each 2D tower's entry point resolves its device before it reads a
+    file: without CUDA, and without device="cpu", it raises."""
+    from semantic_gaussians_torch.models import (
+        clip_text, clip_vision, lseg, predictors, samclip, vlpart,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ckpt = str(tmp_path / "none.pt")
+    call = {
+        "CLIPTextEncoder": lambda: clip_text.CLIPTextEncoder(ckpt),
+        "CLIPImageEncoder": lambda: clip_vision.CLIPImageEncoder(checkpoint_path=ckpt),
+        "SAMCLIPPredictor": lambda: samclip.SAMCLIPPredictor(None, None),
+        "VLPartPredictor": lambda: vlpart.VLPartPredictor(None, None),
+        "LSegPredictor": lambda: lseg.LSegPredictor(ckpt),
+        "TorchCLIPTextEncoder": lambda: predictors.TorchCLIPTextEncoder(tmp_path),
+        "make_predictor": lambda: predictors.make_predictor(
+            "samclip", {"sam_checkpoint": ckpt, "clip_checkpoint": ckpt}),
+    }[provider]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
 

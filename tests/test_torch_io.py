@@ -242,7 +242,7 @@ def test_precomputed_provider_matches_jax(tmp_path, ext, layout):
         b.extract_text_feature(["wall"])
 
 
-def test_make_predictor_dispatch(tmp_path):
+def test_make_predictor_dispatch(tmp_path, monkeypatch):
     from semantic_gaussians_torch.config.config import DotDict
     from semantic_gaussians_torch.models import predictors as tp
 
@@ -253,10 +253,19 @@ def test_make_predictor_dispatch(tmp_path):
     assert tp.make_predictor("random", cfg).embedding_dim == 32
     assert tp.make_predictor("precomputed", cfg).dtype == np.float32
     assert tp.make_predictor("precomputed", dict(cfg, feat_dtype="float16")).dtype == np.float16
+    # the model towers: on CUDA unless the CPU is asked for; local checkpoints
+    missing = dict(cfg, lseg_checkpoint=str(tmp_path / "none.ckpt"),
+                   sam_checkpoint=str(tmp_path / "none.pth"),
+                   clip_checkpoint=str(tmp_path / "none.pt"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in ("lseg", "samclip", "vlpart"):
-        with pytest.raises(NotImplementedError, match="2D-models slice"):
-            tp.make_predictor(name, cfg)
-    with pytest.raises(NotImplementedError, match="2D-models slice"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tp.make_predictor(name, missing)
+        with pytest.raises(FileNotFoundError):
+            tp.make_predictor(name, missing, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         tp.TorchCLIPTextEncoder("/no/such/checkpoint")
+    with pytest.raises(FileNotFoundError):
+        tp.TorchCLIPTextEncoder("/no/such/checkpoint", device="cpu")
     with pytest.raises(ValueError, match="unknown model_2d"):
         tp.make_predictor("dinov9", cfg)
