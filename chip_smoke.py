@@ -4,8 +4,9 @@
 Drives the port's main paths once at full width on one CUDA card (the
 viewer service, RGB training through the train CLI, 2D -> 3D fusion, 3D
 distillation and open-vocabulary evaluation through their CLIs, the 2D
-models behind the fusion and eval CLIs, the segment-sum probe tools) and
-holds each hand-written kernel against its plain PyTorch version:
+models behind the fusion and eval CLIs, the segment-sum probe tools, the
+multi-device schedules) and holds each hand-written kernel against its
+plain PyTorch version:
 
   1. device: the card's name and power limit, torch and CUDA versions; the
      five kernel sources are built from csrc/ (one nvcc per source, all at
@@ -112,6 +113,27 @@ holds each hand-written kernel against its plain PyTorch version:
      lowered thresholds (>= CROPS_FLOOR crops), CLIP crops a second, the
      per-pixel sum, LSeg single pass and sliding, the text towers, each
      fusion CLI and eval pretrained a view, peak memory, busy shares.
+ 15. (run after phase 14) the multi-device schedules (parallel/) on the
+     card: (a) one rank over NCCL in this process at full width -
+     render_sharded at 640x480 RGB and C = 768 against render /
+     render_chn, the view-DP, band, band-ZeRO, hybrid and hybrid-ZeRO
+     steps on the timed training view (random rotations, anisotropic
+     scales) against train_step, make_parallel_fuse_step on one ring
+     view against fuse_view, make_parallel_distill_step on the distill
+     phase's item against make_distill_step; each reported bit for bit or
+     held at its tolerance (see image_gap, state_gap); (b) two processes
+     sharing the card over gloo (both bind cuda:0): render_sharded, the
+     five steps (view-DP on two ring views against a single-device
+     two-view step), the hybrid loop at 1 x 2 for DIST_LOOP_ITERS
+     iterations with one densify (both ranks bitwise equal), parallel
+     fusion on two ring views (counts exact, features rtol 1e-6), the
+     parallel distill step at DIST_DISTILL_BUDGET voxels a rank; (b') the
+     train CLI with pipeline.distributed=true (ZeRO) on two processes:
+     rank 0 alone writes the PLY, which renders. Per-rank times beside
+     train_step's and render's, bytes handed to collectives a step; the
+     launches of (a), (b) and (b') make the kernels line's "distributed"
+     path. A child that fails, exits non-zero or hangs past DIST_TIMEOUT_S
+     fails the run.
 Every number is stamped with the card's name and power limit.
 
 Prints one JSON line of per-kernel numbers, the card's name and power limit,
@@ -481,6 +503,9 @@ def main():
         models_2d = models_2d_phase(Path(train_tmp), trained["scene"], fused, evaluated, dev,
                                     card)
 
+        # ------------------------------------------------------------ 15
+        distributed = distributed_phase(Path(train_tmp), trained["scene"], fused, dev, card)
+
     # ---------------------------------------------------------------- 11
     tools = run_probe_tools()
 
@@ -547,15 +572,16 @@ def main():
         by_shape={k: expand_numbers(v) for k, v in ex_by_shape.items()}))
     # Launches, counted from 0 over each main path's run: the viewer's
     # requests (phase 3), the train CLI (7), the fusion CLI (9), the distill
-    # CLI (9b), the eval CLI's six runs (10) and the two probe tools (11).
-    # `launches` is their sum.
+    # CLI (9b), the eval CLI's six runs (10), the two probe tools (11) and
+    # the distributed schedules' calls in this process and in the two-rank
+    # children (15). `launches` is their sum.
     for e in kernel_lines:
         if e["name"] == "composite_fwd":
             e["training_view"] = step_times["composite"]["composite_fwd"]
     paths = {"viewer": viewer_launches, "train": trained["launches"],
              "fusion": fused["launches"], "distill": distilled["launches"],
              "eval": evaluated["launches"], **models_2d["launches"],
-             "tools": tools["launches"]}
+             "tools": tools["launches"], "distributed": distributed["launches"]}
     for e in kernel_lines:
         by_path = {name: counts[e["name"]] for name, counts in paths.items()}
         e["launches"] = sum(by_path.values())
@@ -1849,13 +1875,13 @@ def distill_through_cli(tmpdir, scene, fused, dev, card):
                 cli_wall_s=wall, times=times, unet_errs=unet_errs)
 
 
-def distill_item(ply, pt, seed=0):
+def distill_item(ply, pt, seed=0, budget=DISTILL_BUDGET):
     """The distill dataset's item of the fusion scene (aug on), as the CLI
     draws it."""
     from semantic_gaussians_torch.data.feature_dataset import FeatureDataset
 
     ds = FeatureDataset([str(ply)], [str(pt)], voxel_size=DISTILL_VOXEL, aug=True,
-                        voxel_budget=DISTILL_BUDGET)
+                        voxel_budget=budget)
     return ds.__getitem__(0, seed=seed)
 
 
@@ -2727,6 +2753,509 @@ def run_probe_tools():
     print(f"probe tools: launches {launches}")
     print(json.dumps({"tools": tables}))
     return dict(launches=launches, tables=tables)
+
+
+
+# ------------------------------------------------------------------ distributed (15)
+DIST_TIMEOUT_S = 420  # a rank's process-group timeout and the wait for a child
+DIST_LOOP_ITERS = 30  # the hybrid loop on two ranks: one densify, at 20
+DIST_CLI_ITERS = 30
+# Two MinkUNet34A steps side by side on one card: the 200,000 budget of
+# phase 9b peaks at 50.5 GiB in one process, so each rank takes a quarter.
+DIST_DISTILL_BUDGET = 50_000
+DIST_REPS = 10
+SCHEDULES = ("dp", "band", "band_zero", "hybrid", "hybrid_zero")
+
+
+def counted(acc, fn):
+    """Run one distributed call with every launch count set to 0 just
+    before and read just after, adding the counts to `acc`."""
+    import torch
+
+    counters = all_counters()
+    for c in counters:
+        c.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    for c in counters:
+        acc[c.name] = acc.get(c.name, 0) + c.count
+    return out
+
+
+def schedule_step(kind, world, cfg, h, w):
+    """(mesh, step, the axis its ZeRO moments shard over or None) of one
+    schedule over `world` ranks: view-DP, band and band-ZeRO on a 1D mesh,
+    the hybrid steps on a 1 x world (view, band) mesh."""
+    from semantic_gaussians_torch.parallel import train_parallel as tp
+    from semantic_gaussians_torch.parallel.mesh import make_mesh, make_mesh_of
+
+    if kind.startswith("hybrid"):
+        mesh = make_mesh_of((1, world), ("view", "band"))
+        make = tp.make_hybrid_train_step_zero if kind.endswith("zero") else \
+            tp.make_hybrid_train_step
+        return mesh, make(mesh, cfg, 3, h, w), "band" if kind.endswith("zero") else None
+    mesh = make_mesh(world)
+    if kind == "dp":
+        return mesh, tp.make_parallel_train_step(mesh, cfg, 3), None
+    if kind == "band":
+        return mesh, tp.make_band_train_step(mesh, cfg, 3), None
+    return mesh, tp.make_band_train_step_zero(mesh, cfg, 3, h, w), "data"
+
+
+def reference_dp_step(state, cams, bg, cfg):
+    """The single-device step of view-DP's semantics on several views: each
+    view's gradient in turn, their mean, per-view densify norms summed."""
+    import dataclasses as dc
+
+    import torch
+
+    from semantic_gaussians_torch.core.densify import add_stats_prereduced
+    from semantic_gaussians_torch.core.gaussians import FIELDS
+    from semantic_gaussians_torch.core.optimizer import adam_update, lr_tree
+    from semantic_gaussians_torch.renderer import render
+    from semantic_gaussians_torch.utils.losses import photometric_loss
+
+    params = state.params
+    total, norms, vis, radii = None, 0.0, 0.0, None
+    for cam in cams:
+        leaves = {f: getattr(params, f).detach().requires_grad_(True) for f in FIELDS}
+        offset = torch.zeros((params.capacity, 2), device=params.device, requires_grad=True)
+        out = render(cam, type(params)(**leaves), alive=state.alive, bg=bg,
+                     active_sh_degree=3, mean2d_offset=offset)
+        loss = photometric_loss(out["render"], cam.image, cfg.lambda_dssim)
+        grads = torch.autograd.grad(loss, [leaves[f] for f in FIELDS] + [offset])
+        total = grads[:-1] if total is None else [a + b for a, b in zip(total, grads[:-1])]
+        visible = out["radii"] > 0
+        scale = torch.tensor([[cam.width * 0.5, cam.height * 0.5]], device=params.device)
+        norms = norms + torch.where(visible, torch.linalg.norm(grads[-1] * scale, dim=-1), 0.0)
+        vis = vis + visible.float()
+        radii = out["radii"] if radii is None else torch.maximum(radii, out["radii"])
+    gparams = type(params)(**{f: g / len(cams) for f, g in zip(FIELDS, total)})
+    dstate = add_stats_prereduced(state.dstate, norms, vis, radii)
+    new_params, adam = adam_update(gparams, state.adam, params,
+                                   lr_tree(cfg.hyper, cfg.spatial_lr_scale, state.step), cfg.hyper)
+    return dc.replace(state, params=new_params, adam=adam, dstate=dstate, step=state.step + 1)
+
+
+def state_gap(what, got, want, cfg):
+    """A TrainState one step from the zero-moment start against the
+    single-device one: bit for bit, or else within test_parallel.py's
+    tolerances (each leaf's gradient, its Adam first moment / 0.1, at 2e-3
+    of the leaf's largest; densify norms at 2e-3; visibility and max radii
+    exact) and Adam's first step (every parameter within 2 lr; within
+    1e-2 lr where |g| >= 1e-3 of the leaf's largest). Fails beyond them."""
+    import torch
+
+    from semantic_gaussians_torch.core.gaussians import FIELDS
+    from semantic_gaussians_torch.core.optimizer import lr_tree
+
+    lrs = lr_tree(cfg.hyper, cfg.spatial_lr_scale, 0)
+    exact = True
+    worst = {"grad": 0.0, "param_lr": 0.0, "strong_param_lr": 0.0}
+    for f in FIELDS:
+        pg, pw = getattr(got.params, f), getattr(want.params, f)
+        mg, mw = getattr(got.adam.mu, f), getattr(want.adam.mu, f)
+        exact &= torch.equal(pg, pw) and torch.equal(mg, mw) and torch.equal(
+            getattr(got.adam.nu, f), getattr(want.adam.nu, f))
+        scale = float(mw.abs().max()) / 0.1 + 1e-20
+        grad = float((mg - mw).abs().max()) / 0.1 / scale
+        lr = float(getattr(lrs, f))
+        d = (pg - pw).abs()
+        strong = (mw / 0.1).abs() >= 1e-3 * scale
+        gaps = dict(grad=grad, param_lr=float(d.max()) / lr,
+                    strong_param_lr=float(d[strong].max()) / lr if bool(strong.any()) else 0.0)
+        for k, v in gaps.items():
+            worst[k] = max(worst[k], v)
+        if grad > 2e-3 or gaps["param_lr"] > 2 * 1.0001 or gaps["strong_param_lr"] > 1e-2:
+            fail(f"{what} {f} against the single-device step: {gaps}")
+    for k in ("denom", "max_radii2d"):
+        exact &= torch.equal(getattr(got.dstate, k), getattr(want.dstate, k))
+        if not torch.equal(getattr(got.dstate, k), getattr(want.dstate, k)):
+            fail(f"{what} densify {k} differs from the single-device step")
+    acc_g, acc_w = got.dstate.xyz_grad_accum, want.dstate.xyz_grad_accum
+    worst["accum"] = float((acc_g - acc_w).abs().max() / (acc_w.max() + 1e-12))
+    exact &= torch.equal(acc_g, acc_w)
+    if worst["accum"] > 2e-3:
+        fail(f"{what} densify norms against the single-device step: {worst['accum']}")
+    return dict(bit_for_bit=bool(exact), **worst)
+
+
+def image_gap(what, got, want):
+    """render_sharded's outputs against the single-device render's: bit for
+    bit, or else render rtol 1e-4 / atol 1e-5, depth 1e-4, final_T 1e-5,
+    n_contrib exact (the CPU tests' tolerances)."""
+    import torch
+
+    exact = all(torch.equal(got[k], want[k]) for k in ("render", "depth", "final_T",
+                                                       "n_contrib"))
+    if not torch.equal(got["n_contrib"], want["n_contrib"]):
+        fail(f"{what}: n_contrib differs at {int((got['n_contrib'] != want['n_contrib']).sum())} px")
+    for k, rtol, atol in (("render", 1e-4, 1e-5), ("depth", 1e-4, 1e-4),
+                          ("final_T", 1e-4, 1e-5)):
+        try:
+            torch.testing.assert_close(got[k], want[k], rtol=rtol, atol=atol)
+        except AssertionError as e:
+            fail(f"{what} {k} against the single-device render: {e}")
+    if int(got["overflow"]) != 0:
+        fail(f"{what}: overflow {int(got['overflow'])}")
+    return dict(bit_for_bit=bool(exact),
+                max_abs_err=float((got["render"] - want["render"]).abs().max()))
+
+
+def state_digest(state):
+    """sha256 of a TrainState's parameters, alive mask and moments."""
+    import hashlib
+
+    from semantic_gaussians_torch.core.gaussians import FIELDS
+
+    h = hashlib.sha256()
+    for p in (state.params, state.adam.mu, state.adam.nu):
+        for f in FIELDS:
+            h.update(getattr(p, f).detach().cpu().numpy().tobytes())
+    h.update(state.alive.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def distributed_items(world, job):
+    """Phase 15's items on this rank (world = 1: one rank over NCCL in the
+    main process; world = 2: a child process of two over gloo), each
+    distributed call counted and timed and held against its single-device
+    counterpart on the card, computed after it. Returns launches, checks,
+    per-rank times and the bytes handed to collectives a step."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from semantic_gaussians_torch.core.gaussians import params_from_numpy
+    from semantic_gaussians_torch.io.ply import load_gaussian_ply
+    from semantic_gaussians_torch.io.scene import load_scene, realize_camera
+    from semantic_gaussians_torch.parallel import train_parallel as tp
+    from semantic_gaussians_torch.parallel.mesh import make_mesh, make_mesh_of
+    from semantic_gaussians_torch.parallel.render_sharded import render_sharded
+    from semantic_gaussians_torch.pipelines import distill as td
+    from semantic_gaussians_torch.pipelines.fusion import (
+        FusionConfig, _intrinsic_for, fuse_view, make_parallel_fuse_step,
+    )
+    from semantic_gaussians_torch.pipelines.train import TrainConfig, init_train_state, train_step
+    from semantic_gaussians_torch.renderer import render
+
+    dev = torch.device(job["device"])
+    launches, checks, times, comm = {}, {}, {}, {}
+
+    def synced(fn):
+        def run():
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+        return run
+
+    # -- render_sharded on the viewer scene, RGB (and C = 768 at one rank)
+    arrays, feats_np = make_scene(np, N_GAUSSIANS, feats=world == 1)
+    params, alive = padded_params(arrays, dev)
+    cam = viewer_camera(dev)
+    mesh = make_mesh(world)
+    cases = {"rgb": None}
+    if world == 1:
+        feats = torch.zeros((params.capacity, FEAT_DIM), device=dev)
+        feats[:N_GAUSSIANS] = torch.from_numpy(feats_np).to(dev)
+        cases[f"C={FEAT_DIM}"] = feats
+    for name, override in cases.items():
+        mesh.comm_bytes.clear()
+        got = counted(launches, lambda: render_sharded(cam, params, alive, mesh,
+                                                        override_color=override))
+        comm[f"render_sharded {name}"] = dict(mesh.comm_bytes)
+        want = render(cam, params, alive=alive, override_color=override)
+        checks[f"render_sharded {name}"] = image_gap(f"render_sharded {name}", got, want)
+        times[f"render_sharded {name}"] = host_ms(synced(
+            lambda: render_sharded(cam, params, alive, mesh, override_color=override)), DIST_REPS)
+        times[f"render {name}"] = host_ms(synced(
+            lambda: render(cam, params, alive=alive, override_color=override)), DIST_REPS)
+    del params, alive, cases, arrays, feats_np
+    torch.cuda.empty_cache()
+
+    # -- the train steps on the timed training view (view-DP: `world` views)
+    info = load_scene(job["scene"])
+    cams = [realize_camera(ci, device=dev) for ci in info.train_cameras]
+    _, _, tparams, talive = training_view(job["scene"], dev)
+    # random rotations and anisotropic scales, as the JAX package's parallel
+    # tests draw them: the point cloud's isotropic splats have a rotation
+    # gradient of exactly zero, which would hold rounding against rounding
+    draw = np.random.default_rng(SEED)
+    tparams = dc.replace(
+        tparams,
+        quats=torch.from_numpy(draw.normal(size=tuple(tparams.quats.shape)).astype(np.float32)
+                               ).to(dev),
+        log_scales=tparams.log_scales + torch.from_numpy(draw.uniform(
+            -0.8, 0.8, size=tuple(tparams.log_scales.shape)).astype(np.float32)).to(dev),
+    )
+    extent = float(info.nerf_normalization["radius"])
+    cfg = TrainConfig(spatial_lr_scale=extent)
+    state0 = init_train_state(tparams, talive)
+    bg = torch.zeros(3, device=dev)
+    h, w = cams[0].height, cams[0].width
+    single = train_step(state0, cams[0], bg, cfg, 3)[0]
+    times["train_step"] = host_ms(synced(lambda: train_step(state0, cams[0], bg, cfg, 3)),
+                                  DIST_REPS)
+    for kind in SCHEDULES:
+        kmesh, step, zaxis = schedule_step(kind, world, cfg, h, w)
+        arg = tp.stack_cameras(cams[:world]) if kind == "dp" else (
+            tp.stack_cameras(cams[:1]) if kind.startswith("hybrid") else cams[0])
+        start = tp.shard_moments(state0, kmesh, zaxis) if zaxis else state0
+        kmesh.comm_bytes.clear()
+        new, _ = counted(launches, lambda: step(start, arg, bg))
+        comm[kind] = dict(kmesh.comm_bytes)
+        if zaxis:
+            new = tp.gather_moments(new, kmesh, zaxis)
+        want = reference_dp_step(state0, cams[:world], bg, cfg) if kind == "dp" and world > 1 \
+            else single
+        checks[kind] = state_gap(kind, new, want, cfg)
+        times[kind] = host_ms(synced(lambda: step(start, arg, bg)), DIST_REPS)
+    del single, new, start
+
+    # -- the hybrid loop (two ranks): a densify at 20, ranks bitwise equal
+    if world > 1:
+        lcfg = dc.replace(cfg, densify_from_iter=10, densification_interval=20,
+                          densify_until_iter=DIST_LOOP_ITERS)
+        lmesh = make_mesh_of((1, world), ("view", "band"))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        t0 = time.perf_counter()
+        state, hist = counted(launches, lambda: tp.hybrid_train_loop(
+            state0, cams, lcfg, gen, lmesh, scene_extent=extent, num_iters=DIST_LOOP_ITERS))
+        checks["hybrid_loop"] = dict(
+            digest=state_digest(state), alive_before=int(talive.sum()),
+            alive_after=int(state.alive.sum()), capacity=state.params.capacity,
+            step=int(state.step), wall_s=time.perf_counter() - t0)
+        del state
+    del state0, tparams, talive
+    torch.cuda.empty_cache()
+
+    # -- view-parallel fusion: `world` ring views of the fusion phase's maps
+    fp, fa = load_gaussian_ply(job["fusion_model"])
+    fparams, falive = params_from_numpy(fp, dev), torch.from_numpy(fa).to(dev)
+    fcfg = FusionConfig(img_dim=(FUSE_W, FUSE_H), visibility_threshold=VISIBILITY)
+    fcams = [realize_camera(ci, with_image=False).resized(FUSE_W, FUSE_H).to(dev)
+             for ci in info.train_cameras[:world]]
+    intr = torch.stack([torch.from_numpy(_intrinsic_for(c, fcfg.img_dim)) for c in fcams]).to(dev)
+
+    def fmap(i):
+        path = Path(job["feature_dir"]) / f"{info.train_cameras[i].image_name}.npy"
+        return torch.from_numpy(np.load(path)).to(dev)
+
+    rank = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
+    maps = [fmap(i) if i == rank else None for i in range(world)]
+    fmesh = make_mesh(world)
+    fstep = make_parallel_fuse_step(fmesh, fcfg.img_dim, VISIBILITY, fcfg.cut_boundary)
+    zeros = (torch.zeros((fparams.capacity, FEAT_DIM), device=dev),
+             torch.zeros(fparams.capacity, device=dev))
+    ones = torch.ones(world, device=dev)
+    fmesh.comm_bytes.clear()
+    sem, cnt = counted(launches, lambda: fstep(*zeros, fparams, falive, fcams, intr, maps, ones))
+    comm["fuse"] = dict(fmesh.comm_bytes)
+    times["fuse"] = host_ms(synced(lambda: fstep(*zeros, fparams, falive, fcams, intr, maps,
+                                                  ones)), 3)
+    ssem, scnt = torch.zeros_like(zeros[0]), torch.zeros_like(zeros[1])
+    with torch.no_grad():
+        for i in range(world):
+            depth = render(fcams[i], fparams, alive=falive, override_shape=fcfg.img_dim)["depth"]
+            fuse_view(ssem, scnt, fparams.means, falive, fcams[i].world_view, intr[i],
+                      maps[i] if maps[i] is not None else fmap(i), depth, fcfg.img_dim,
+                      VISIBILITY, fcfg.cut_boundary)
+    if not torch.equal(cnt, scnt):
+        fail(f"parallel fusion counts differ from serial at {int((cnt != scnt).sum())} rows")
+    try:
+        torch.testing.assert_close(sem, ssem, rtol=1e-6, atol=1e-6)
+    except AssertionError as e:
+        fail(f"parallel fusion features against serial fuse_view: {e}")
+    checks["fuse"] = dict(bit_for_bit=bool(torch.equal(sem, ssem)), visited=int((cnt > 0).sum()),
+                          max_abs_err=float((sem - ssem).abs().max()))
+    del sem, cnt, ssem, scnt, zeros, maps, fparams, falive
+    torch.cuda.empty_cache()
+
+    # -- scene-parallel distillation: the distill phase's item, one a rank
+    budget = DISTILL_BUDGET if world == 1 else DIST_DISTILL_BUDGET
+    dcfg = td.DistillConfig(model_3d=DISTILL_ARCH, feature_dim=FEAT_DIM, epochs=1000)
+    items = [distill_item(job["fusion_model"], job["distill_pt"], seed=i, budget=budget)
+             for i in range(world)]
+    batch = td.stack_items(items, dev)
+    model, opt, schedule = td.make_distill_state(dcfg, 1, SEED, device=dev)
+    pstep = td.make_parallel_distill_step(model, opt, schedule, dcfg, make_mesh(world))
+    torch.cuda.reset_peak_memory_stats()
+    loss = float(counted(launches, lambda: pstep(*batch)))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not np.isfinite(loss):
+        fail(f"parallel distill loss {loss}")
+    stats = {k: v for k, v in model.state_dict().items() if k.endswith((".mean", ".var"))}
+    dcheck = dict(loss=loss, voxels=[it.num_voxels for it in items], budget=budget,
+                  peak_gib=peak)
+    if world == 1:
+        # against make_distill_step from the same weights: the sums of the
+        # conv backward (index_add_) run in no fixed order on the card
+        ref, ropt, rsched = td.make_distill_state(dcfg, 1, SEED, device=dev)
+        rloss = float(td.make_distill_step(ref, ropt, rsched, dcfg)(
+            *td.item_tensors(items[0], items[0].coords, dev)))
+        rstate = ref.state_dict()
+        lr = rsched(0)
+        dcheck.update(single_loss=rloss, bit_for_bit=all(
+            torch.equal(v, rstate[k]) for k, v in model.state_dict().items()))
+        if abs(loss - rloss) > 1e-4 * abs(rloss):
+            fail(f"parallel distill loss {loss} against the single-device step's {rloss}")
+        worst_stat = max(float((v - rstate[k]).abs().max() / (rstate[k].abs().max() + 1e-30))
+                         for k, v in stats.items())
+        worst_w = max(float((p.detach() - rstate[k]).abs().max()) / lr
+                      for k, p in model.named_parameters())
+        dcheck.update(batch_stats_gap=worst_stat, weights_gap_lr=worst_w)
+        if worst_stat > 1e-4 or worst_w > 2 * 1.0001:
+            fail(f"parallel distill against the single-device step: batch stats "
+                 f"{worst_stat}, weights {worst_w} lr")
+        del ref, ropt
+    else:
+        import hashlib
+
+        h = hashlib.sha256()
+        for v in model.state_dict().values():
+            h.update(v.detach().cpu().numpy().tobytes())
+        dcheck["digest"] = h.hexdigest()
+    times["distill_step"] = host_ms(synced(lambda: pstep(*batch)), 2)
+    checks["distill"] = dcheck
+    del model, opt, pstep, batch
+    torch.cuda.empty_cache()
+    return dict(launches=launches, checks=checks, times_ms=times, comm_bytes=comm)
+
+
+def _items_rank(rank, world, job):
+    """One of phase 15's two ranks sharing the card over gloo."""
+    return distributed_items(world, job)
+
+
+def _cli_rank(rank, world, job):
+    """The train CLI with pipeline.distributed=true on this rank (it makes
+    the process group from the launch variables)."""
+    import torch
+
+    from semantic_gaussians_torch.cli import train as train_cli
+
+    acc = {}
+    t0 = time.perf_counter()
+    summary = counted(acc, lambda: train_cli.main([
+        str(ROOT / "semantic_gaussians_torch" / "config" / "yamls" / "official_train.yaml"),
+        f"scene.scene_path={job['scene']}", f"train.out_dir={job['out_dir']}",
+        f"train.iterations={DIST_CLI_ITERS}", "train.test_iterations=[]",
+        "train.save_iterations=[]", "train.densify_from_iter=10",
+        "train.densification_interval=20", f"train.densify_until_iter={DIST_CLI_ITERS}",
+        "pipeline.distributed=true", "pipeline.dist_backend=gloo", "pipeline.zero=true",
+        f"train.device={torch.device(job['device']).type}",
+    ]))
+    wall = time.perf_counter() - t0
+    state = summary["state"]
+    return dict(launches=acc, plys=[str(p) for p in summary["plys"]], wall_s=wall,
+                digest=state_digest(state), alive=int(state.alive.sum()),
+                loss=[m["loss"] for _, m in summary["logs"][-1]["history"]],
+                device=str(state.params.device), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def spawn_ranks(job, world=2):
+    """Run `job` on `world` spawned processes sharing the card; return
+    their results in rank order. A child's failure, non-zero exit or
+    silence past DIST_TIMEOUT_S fails the run; every child is stopped."""
+    from semantic_gaussians_torch.parallel import multihost
+
+    if job["kind"] == "cli":
+        fn, init = _cli_rank, None
+    else:  # both ranks on the one card: NCCL refuses two ranks a device
+        fn, init = _items_rank, dict(device=job["device"], backend="gloo",
+                                     timeout_s=DIST_TIMEOUT_S)
+    try:
+        return multihost.spawn_ranks(fn, world, job, timeout=DIST_TIMEOUT_S, init=init)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 15 {job['kind']}: {e}")
+
+
+def distributed_phase(tmpdir, scene, fused, dev, card):
+    """Phase 15, the multi-device schedules (parallel/): (a) one rank over
+    NCCL in this process at full width, (b) two processes sharing the card
+    over gloo, then the train CLI with pipeline.distributed=true on two
+    processes. Returns the distributed path's launches (all three parts)
+    and the numbers."""
+    import torch
+
+    from semantic_gaussians_torch.cli.view_server import ViewerState
+    from semantic_gaussians_torch.config.config import default_config_dir, load_config
+    from semantic_gaussians_torch.parallel import multihost
+
+    t_phase = time.perf_counter()
+    ply = sorted((fused["model_dir"] / "point_cloud").glob("iteration_*"))[-1] / "point_cloud.ply"
+    job = dict(kind="items", device=str(dev), scene=str(scene),
+               feature_dir=str(tmpdir / "feats"), fusion_model=str(ply), distill_pt=str(sorted(
+                   (fused["fusion_out"] / scene.name).glob("*.pt"))[0]))
+    torch.cuda.empty_cache()
+
+    # (a) one rank over NCCL: every collective an identity
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.init_distributed(f"127.0.0.1:{port}", 1, 0, device=dev,
+                               backend="nccl" if dev.type == "cuda" else "gloo",
+                               timeout_s=DIST_TIMEOUT_S)
+    try:
+        t0 = time.perf_counter()
+        one = distributed_items(1, job)
+        one["wall_s"] = time.perf_counter() - t0
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "distributed_one_rank_nccl": one}, default=str))
+
+    # (b) two ranks on the card over gloo
+    t0 = time.perf_counter()
+    two = spawn_ranks(job)
+    wall_two = time.perf_counter() - t0
+    a, b = two
+    if a["checks"]["hybrid_loop"]["digest"] != b["checks"]["hybrid_loop"]["digest"]:
+        fail("hybrid loop: the two ranks' states differ")
+    loop = a["checks"]["hybrid_loop"]
+    if loop["alive_after"] == loop["alive_before"] or loop["step"] != DIST_LOOP_ITERS:
+        fail(f"hybrid loop: no densify or wrong step count: {loop}")
+    if a["checks"]["distill"]["digest"] != b["checks"]["distill"]["digest"]:
+        fail("parallel distill: the two ranks' weights differ")
+    print(json.dumps({"card": card, "distributed_two_ranks_gloo": two,
+                      "wall_s": wall_two}, default=str))
+
+    # (b') the train CLI, distributed, on two processes
+    out_dir = tmpdir / "dist_train_out"
+    t0 = time.perf_counter()
+    cli = spawn_ranks(dict(kind="cli", device=str(dev), scene=str(scene),
+                           out_dir=str(out_dir)))
+    wall_cli = time.perf_counter() - t0
+    plys = sorted(out_dir.rglob("*.ply"))
+    if cli[1]["plys"] or len(cli[0]["plys"]) != 1 or [str(p) for p in plys] != cli[0]["plys"]:
+        fail(f"distributed train CLI: PLYs {plys}, rank 0 {cli[0]['plys']}, rank 1 {cli[1]['plys']}")
+    if cli[0]["digest"] != cli[1]["digest"]:
+        fail("distributed train CLI: the two ranks' states differ")
+    viewer = ViewerState(load_config(default_config_dir() / "view_scannet.yaml",
+                                     [f"model.model_dir={out_dir}", f"render.device={dev}"]))
+    img = viewer.render({"mode": ["RGB"], "w": [str(WIDTH)], "h": [str(HEIGHT)],
+                         "fov": ["1.1"], "pose": [POSE]})
+    if img.shape != (HEIGHT, WIDTH, 3) or img.max() == img.min():
+        fail(f"the distributed CLI's PLY does not render: {img.shape}")
+    del viewer
+    print(json.dumps({"card": card, "distributed_train_cli": cli, "wall_s": wall_cli},
+                     default=str))
+
+    launches = {}
+    for part in [one, *two, *cli]:
+        for k, v in part["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for name in ("expand", "composite_fwd", "composite_bwd", "segsum"):
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the distributed path")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 15 (distributed): {wall:.1f} s; one rank (NCCL) {one['wall_s']:.1f} s, two "
+          f"ranks (gloo) {wall_two:.1f} s, train CLI on two ranks {wall_cli:.1f} s; launches "
+          f"{launches}")
+    return dict(launches=launches, wall_s=wall)
 
 
 if __name__ == "__main__":

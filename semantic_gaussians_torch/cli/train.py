@@ -11,8 +11,17 @@ Writes `<train.out_dir or output/<exp_name>>/`: config.yaml, the PLY at
 each save milestone and the last iteration, and a checkpoint (`ckpt_<it>.pt`)
 at each checkpoint milestone. Prints test-view L1 / PSNR (the first 8 test
 views) at each test milestone; a milestone of 0 evaluates the initial
-state. Not ported yet: TensorBoard logging and the multi-device
-(`pipeline.distributed`) branch.
+state. Not ported yet: TensorBoard logging.
+
+With `pipeline.distributed=true` every process is one rank (a card, or a
+CPU process with `--device cpu`, which runs on gloo): the process group is
+made first (parallel.multihost.init_distributed, from the SGTPU_* or a
+launcher's RANK / WORLD_SIZE / LOCAL_RANK variables; NCCL on CUDA unless
+`pipeline.dist_backend` names another, e.g. gloo for ranks that share one
+card), then the (view = node, band = rank in the node) mesh, and
+parallel.train_parallel.hybrid_train_loop trains (`pipeline.zero=true`:
+the ZeRO steps). Rank 0 alone writes config.yaml, the PLYs and the
+checkpoints. Launched without those variables it trains as one rank.
 """
 from __future__ import annotations
 
@@ -29,6 +38,8 @@ from ..core.gaussians import init_from_pcd, num_alive
 from ..core.optimizer import TrainHyper
 from ..io.ply import save_gaussian_ply
 from ..io.scene import load_scene, realize_camera
+from ..parallel import multihost
+from ..parallel.train_parallel import hybrid_train_loop
 from ..pipelines.train import TrainConfig, init_train_state, train_loop
 from ..renderer import render
 from ..utils.checkpoint import save_state
@@ -59,7 +70,24 @@ def main(argv=None) -> dict:
     args, overrides = ap.parse_known_args(argv)
     cfg = load_config(args.config, overrides)
     t = cfg.train
-    device = resolve_device(args.device or t.get("device", "cuda"))
+    dev_arg = args.device or t.get("device", "cuda")
+    distributed = bool(cfg.pipeline.get("distributed", False))
+    launched = False
+    if distributed:  # before any CUDA work: it binds this rank's card first
+        launched = multihost.init_distributed(device=dev_arg,
+                                              backend=cfg.pipeline.get("dist_backend"))
+        device = multihost.rank_device(dev_arg)
+    else:
+        device = resolve_device(dev_arg)
+    try:
+        return _train(cfg, t, device, distributed)
+    finally:
+        if launched:
+            torch.distributed.destroy_process_group()
+
+
+def _train(cfg, t, device, distributed) -> dict:
+    primary = multihost.is_primary()
     print(pretty(cfg))
     seed = int(cfg.pipeline.get("seed", 0))
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -112,8 +140,13 @@ def main(argv=None) -> dict:
         spatial_lr_scale=extent,
     )
     out_dir = pathlib.Path(t.get("out_dir") or pathlib.Path("output") / str(t.exp_name))
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "config.yaml").write_text(pretty(cfg))
+    if primary:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "config.yaml").write_text(pretty(cfg))
+    if distributed:
+        mesh = multihost.make_view_band_mesh()
+        rank = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
+        print(f"[distributed] rank {rank}, mesh {mesh.shape}, {device}")
 
     iters = int(t.iterations)
     save_iters = {int(i) for i in t.get("save_iterations", [])}
@@ -128,7 +161,16 @@ def main(argv=None) -> dict:
     summary = dict(logs=[], tests={}, plys=[])
     done = 0
     for target in milestones:
-        if target > done:
+        if target > done and distributed:
+            # the loop returns the ZeRO moments gathered (every rank gathers)
+            state, history = hybrid_train_loop(
+                state, cameras, tc, generator, mesh, scene_extent=extent,
+                num_iters=target - done, log_every=100, pair_budget=budget, iter_offset=done,
+                zero=bool(cfg.pipeline.get("zero", False)),
+            )
+            summary["logs"].append(dict(history=history))
+            done = target
+        elif target > done:
             state, log = train_loop(
                 state, cameras, tc, generator, extent, num_iters=target - done,
                 backend=backend, log_every=100, pair_budget=budget, iter_offset=done,
@@ -138,13 +180,13 @@ def main(argv=None) -> dict:
         if target in test_iters and test_cams:
             l1, p = evaluate(state, test_cams, bg, backend, budget)
             summary["tests"][target] = (l1, p)
-            print(f"[test @ {target}] L1 {l1:.4f} PSNR {p:.2f}")
-        if target in save_iters or target == iters:
+            multihost.primary_print(f"[test @ {target}] L1 {l1:.4f} PSNR {p:.2f}")
+        if primary and (target in save_iters or target == iters):
             ply = out_dir / "point_cloud" / f"iteration_{target}" / "point_cloud.ply"
             save_gaussian_ply(ply, state.params, state.alive.cpu().numpy())
             summary["plys"].append(ply)
             print(f"saved {ply} ({int(num_alive(state.alive))} gaussians)")
-        if target in ckpt_iters:
+        if primary and target in ckpt_iters:
             save_state(out_dir / f"ckpt_{target}.pt", state)
             print(f"checkpointed iteration {target}")
     summary["state"] = state

@@ -76,6 +76,26 @@ def add_stats(
     )
 
 
+@torch.no_grad()
+def add_stats_prereduced(
+    dstate: DensifyState,
+    norm_sum: torch.Tensor,  # [cap] sum over views of per-view grad norms
+    vis_sum: torch.Tensor,  # [cap] sum over views of visibility counts
+    radii_max: torch.Tensor,  # [cap] max radii over views
+) -> DensifyState:
+    """Accumulate statistics already reduced over a batch of views. The
+    reference adds one view's norm and visibility a step; with V views a
+    step the equivalent is sum_v ||g_v|| and sum_v visible_v, not the norm
+    of the mean gradient (cross-view cancellation would under-trigger
+    densification). Multi-device steps sum the per-view norms and counts
+    over their ranks and pass the sums here."""
+    return DensifyState(
+        xyz_grad_accum=dstate.xyz_grad_accum + norm_sum,
+        denom=dstate.denom + vis_sum,
+        max_radii2d=torch.maximum(dstate.max_radii2d, radii_max.to(torch.float32)),
+    )
+
+
 def _stable_order(mask: torch.Tensor) -> torch.Tensor:
     """Indices with the False entries first, each group in index order."""
     return torch.argsort(mask.to(torch.int32), stable=True)

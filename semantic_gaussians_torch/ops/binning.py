@@ -174,3 +174,11 @@ def default_pair_budget(n: int, avg_tiles_per_gaussian: int = 12) -> int:
     """Heuristic static budget, rounded to 8k granules."""
     b = n * avg_tiles_per_gaussian
     return max(8192, -(-b // 8192) * 8192)
+
+
+def band_pair_budget(capacity: int, nband: int) -> int:
+    """Per-band static budget of a tile-band render: 2x headroom over the
+    even 1/nband split of the full image's budget (clustered splats would
+    overflow an even split), ceiled to 8k granules."""
+    per_band = -(-default_pair_budget(capacity) * 2 // nband)
+    return max(8192, -(-per_band // 8192) * 8192)

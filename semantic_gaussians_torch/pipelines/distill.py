@@ -6,7 +6,8 @@ decay over all steps, the cosine-similarity loss over voxels with
 supervision, a random global coordinate shift per item, periodic
 checkpoints and an every-N-epoch semantic render of a validation scene.
 Data preparation is host-side (FeatureDataset); the step (topology, UNet
-forward and backward, AdamW) runs on the device the model lives on. The
+forward and backward, AdamW) runs on the device the model lives on;
+`make_parallel_distill_step` trains one scene a rank of a mesh axis. The
 functions that make a model or a scene's tensors take `device` through
 `utils.device.resolve_device`: CUDA unless the caller asks for the CPU.
 
@@ -26,8 +27,10 @@ import torch
 
 from ..data.feature_dataset import DistillItem, FeatureDataset
 from ..models.unet3d import (
-    GRID_MAX, MinkUNet, build_topology, mink_unet, unet_state_from_flax, unet_state_to_flax,
+    GRID_MAX, MaskedBatchNorm, MinkUNet, build_topology, mink_unet, unet_state_from_flax,
+    unet_state_to_flax,
 )
+from ..parallel.collectives import flat_rows, psum, split_rows
 from ..utils.device import resolve_device
 from ..utils.losses import cosine_distill_loss, l1_loss, l2_loss
 from ..utils.schedules import cosine_decay_schedule
@@ -95,6 +98,66 @@ def make_distill_step(model: MinkUNet, opt: torch.optim.Optimizer, schedule, cfg
         return loss.detach()
 
     return step
+
+
+def make_parallel_distill_step(model: MinkUNet, opt: torch.optim.Optimizer, schedule,
+                               cfg: DistillConfig, mesh, axis: str = "data"):
+    """Scene-parallel distillation, one scene a rank: step(coords, feats,
+    gt, gt_mask, mask) -> loss, each argument a batch with one item a rank
+    (stack_items) of which rank c takes slot c. Each rank runs the
+    training-mode forward on its own scene (normalizing by its own batch
+    statistics) and the backward; the gradients and the loss are averaged
+    over the axis before the AdamW update at schedule(t), and the running
+    batch statistics are averaged after it. The model, its optimizer and
+    every rank's weights start alike."""
+    lo, hi = cfg.head_id * cfg.feature_dim, (cfg.head_id + 1) * cfg.feature_dim
+    params = list(model.parameters())
+    stats = [b for m in model.modules() if isinstance(m, MaskedBatchNorm)
+             for b in (m.mean, m.var)]
+    n = mesh.size(axis)
+    count = [0]
+
+    def step(coords, feats, gt, gt_mask, mask):
+        k = mesh.coord(axis)
+        if coords.shape[0] != n:
+            raise ValueError(f"{coords.shape[0]} scenes for the {n} ranks of '{axis}'")
+        topo = build_topology(coords[k], mask[k])
+        model.train()
+        out = model(feats[k], topo)[:, lo:hi]
+        loss = cosine_distill_loss(out, gt[k], mask=gt_mask[k])
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        with torch.no_grad():
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad.reshape(1, -1) for p in params]
+            flat = flat_rows(grads + [loss.reshape(1, 1)])
+            mean = split_rows(psum(flat, mesh, axis) / n, grads + [loss.reshape(1, 1)])
+            for p, g in zip(params, mean[:-1]):
+                p.grad.copy_(g.reshape(p.shape))
+            for group in opt.param_groups:
+                group["lr"] = schedule(count[0])
+            opt.step()
+            count[0] += 1
+            like = [b.reshape(1, -1) for b in stats]
+            avg = split_rows(psum(flat_rows(like), mesh, axis) / n, like)
+            for b, a in zip(stats, avg):
+                b.copy_(a.reshape(b.shape))
+        return mean[-1].reshape(())
+
+    return step
+
+
+def stack_items(items, device: Device = None):
+    """Stack DistillItems into the batches of the parallel step, one item
+    a slot: (coords, feats, gt, gt_mask, mask) on `device` (CUDA by
+    default)."""
+    dev = resolve_device(device)
+    return tuple(
+        torch.from_numpy(np.stack([getattr(it, f) for it in items])).to(dev)
+        for f in ("coords", "feats", "gt", "gt_mask", "mask")
+    )
 
 
 def item_tensors(item: DistillItem, coords: np.ndarray, device):

@@ -13,7 +13,8 @@ The accumulators live on the device that holds the Gaussians and are
 updated in place; one view's feature map is on the device at a time.
 `chunk_views` is accepted for the JAX package's configs: its chunked scan
 amortises XLA dispatches and gives the per-view loop's result, which is
-what runs here. `make_parallel_fuse_step` belongs to the multi-device slice.
+what runs here. `make_parallel_fuse_step` fuses one view a rank and sums
+the deltas over the ranks (parallel.collectives).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 
 from ..core.gaussians import GaussianParams
 from ..data.fusion_utils import compute_mapping, surface_depth
+from ..parallel.collectives import psum_many
 from ..renderer import render
 from ..utils.camera import Camera, fov2focal
 
@@ -69,15 +71,19 @@ def fuse_view(
     img_dim: tuple,
     vis_thres: float,
     cut_bound: int,
+    weight=None,  # 0/1 (a scalar or a [] tensor); 0 skips the view
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Accumulate one view's features onto the Gaussians; returns the two
     accumulators it was given. Only the visible Gaussians' rows are
     gathered (in the map's dtype) and added, so no [cap, C] temporary is
-    built."""
+    built. `weight` gates the whole view (a padded slot of a batch of
+    views contributes nothing)."""
     mapping = compute_mapping(
         world_view, means, intrinsic, img_dim, depth_map, vis_thres, cut_bound
     )
     mask = (mapping[:, 2] > 0) & alive
+    if weight is not None:
+        mask &= torch.as_tensor(weight, device=mask.device) > 0
     rows = torch.nonzero(mask)[:, 0]
     v, u = mapping[rows, 0].long(), mapping[rows, 1].long()
     # rows are distinct, so the adds below have one writer per element
@@ -131,6 +137,54 @@ def view_depth(
         return surface_depth(camera.world_view, params.means, intrinsic, cfg.img_dim,
                              cfg.cut_boundary, valid=alive)
     return None
+
+
+def make_parallel_fuse_step(
+    mesh,
+    img_dim: tuple,
+    vis_thres: float,
+    cut_bound: int,
+    depth_mode: str = "render",
+    backend: str = "tiled",
+    axis: str = "data",
+):
+    """View-parallel fusion: a batch of views fused in one step, one view a
+    rank. step(sem, counts, params, alive, cams, intrinsics, feats, weights)
+    -> (sem, counts): rank c takes slot c of the batch (cams a sequence of
+    Cameras, intrinsics [K, 3, 3], feats [K, H, W, C], weights [K] 0/1, 0 a
+    padded slot), renders its depth ('render'; 'surface' from the centres;
+    'none'), accumulates its own (features, counts) delta with fuse_view,
+    and the deltas are summed over the ranks onto the replicated
+    accumulators. The Gaussians are replicated (fusion only reads them), so
+    the deltas' all-reduce is the one collective."""
+    if depth_mode not in ("render", "surface", "none"):
+        raise ValueError(f"unknown depth mode {depth_mode!r}")
+
+    def step(sem, counts, params, alive, cams, intrinsics, feats, weights):
+        k = mesh.coord(axis)
+        if len(cams) != mesh.size(axis):
+            raise ValueError(f"{len(cams)} views for the {mesh.size(axis)} ranks of '{axis}'")
+        dev = params.device
+        cam = cams[k].to(dev)
+        intr = torch.as_tensor(intrinsics[k]).to(dev)
+        with torch.no_grad():
+            if depth_mode == "render":
+                depth_map = render(cam, params, alive=alive, override_shape=img_dim,
+                                   backend=backend)["depth"]
+            elif depth_mode == "surface":
+                depth_map = surface_depth(cam.world_view, params.means, intr, img_dim,
+                                          cut_bound, valid=alive)
+            else:
+                depth_map = None
+            dsem, dcnt = fuse_view(
+                torch.zeros_like(sem), torch.zeros_like(counts), params.means, alive,
+                cam.world_view, intr, torch.as_tensor(feats[k]).to(dev), depth_map, img_dim,
+                vis_thres, cut_bound, weight=weights[k],
+            )
+            dsem, dcnt = psum_many([dsem, dcnt], mesh, axis)
+        return sem + dsem, counts + dcnt
+
+    return step
 
 
 def fuse_scene(

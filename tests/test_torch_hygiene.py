@@ -93,6 +93,31 @@ def test_train_cli_raises_without_cuda(monkeypatch, tmp_path):
             train.main(args + cpu)
 
 
+def test_distributed_train_cli_raises_without_cuda(monkeypatch, tmp_path):
+    """With pipeline.distributed=true the train CLI still refuses to start
+    without CUDA unless the CPU was asked for (then it runs its ranks on
+    gloo; unlaunched, as one rank) and gets as far as the (missing) scene;
+    a launched rank resolves its device before making the process group."""
+    from semantic_gaussians_torch.cli import train
+    from semantic_gaussians_torch.config.config import default_config_dir
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for k in ("SGTPU_COORDINATOR", "MASTER_ADDR", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    args = [str(default_config_dir() / "official_train.yaml"), f"scene.scene_path={tmp_path}",
+            f"train.out_dir={tmp_path / 'out'}", "pipeline.distributed=true"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(args)
+    with pytest.raises(ValueError, match="Could not recognize scene type"):
+        train.main(args + ["--device", "cpu"])
+    monkeypatch.setenv("SGTPU_COORDINATOR", f"file://{tmp_path / 'store'}")
+    monkeypatch.setenv("SGTPU_NUM_PROCS", "2")
+    monkeypatch.setenv("SGTPU_PROC_ID", "1")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(args)
+    assert not torch.distributed.is_initialized()
+
+
 @pytest.mark.parametrize("cli,yaml,section", [
     ("fusion", "fusion_scannet.yaml", "fusion"),
     ("eval_segmentation", "eval.yaml", "eval"),
