@@ -28,7 +28,14 @@ plain PyTorch version:
      check_probe_kernels), bit-identical over two runs; both summing
      kernels on the small adversarial cases of tools/summing_cases.py; both
      composite kernels on the adversarial cases of tools/composite_cases.py
-     (and their channel scene at C = 768), at the tolerances above.
+     (and their channel scene at C = 768), at the tolerances above; the
+     segment sum captured in a CUDA graph at D = 9 and 774 (P of the
+     viewer's binning, the training view's live pairs) and replayed three
+     times on fresh inputs (random runs, a tools/summing_cases.py case of
+     the width, runs past the look-back's reach), each replay bit for bit
+     an eager call's and within the float64 tolerance
+     (check_segsum_replay; `python3 chip_smoke.py --segsum-replay` runs
+     this check alone).
   3. viewer path: a 100k-Gaussian scene (bench.py's scene law) with 768-dim
      fused features, served over HTTP at 640x480: RGB, Depth, Semantic and
      Relevancy renders, an edit, a reset, then render_chn at C = 768. All
@@ -42,11 +49,18 @@ plain PyTorch version:
   7. training path: a Blender-layout scene (8 views of the 100k target at
      640x480, points3d.ply of its means with jittered colours) trained for
      100 steps by `python -m semantic_gaussians_torch.cli.train` (called in
-     process) with densification; every loss finite, train-view PSNR up by
-     at least 1 dB, the alive count changed by densify, no overflow on the
-     last step, all four kernels launched, the saved PLY rendered through
-     the viewer's ViewerState, and one opacity reset checked.
+     process) with densification, at the CLI's default
+     train.steps_per_dispatch = 10 (a CUDA-graph replay a chunk); every
+     loss finite, train-view PSNR up by at least 1 dB, the alive count
+     changed by densify, no overflow on the last step, all four kernels
+     launched, the saved PLY rendered through the viewer's ViewerState, and
+     one opacity reset checked. The same 100 steps eagerly
+     (steps_per_dispatch = 1), twice: camera order, budgets, densify events
+     and the alive set exact; losses bit for bit where the two eager runs
+     agree bit for bit, else within their spread.
   8. training times: one train step and its parts, the device-busy share,
+     the graphed step (a chunk of 10 a replay, / 10), its busy share and
+     peak memory,
      both composite kernels on the timed training view's binning (checked
      against the plain versions, timed, and the share of the step's device
      time each takes), and the backward kernels' times against their plain
@@ -56,9 +70,11 @@ plain PyTorch version:
      feature map per view rendered from a per-Gaussian class palette (20
      classes, each carrying its label's text feature) and written as .npy;
      `python -m semantic_gaussians_torch.cli.fusion` (in process) fuses
-     them with depth=render. One expand and one forward-composite launch
-     per view, visited share above VISITED_FLOOR, mean cosine of fused
-     against palette features >= 0.9, the .pt reloads.
+     them with depth=render in chunks (chunk_views 4, capped at 2 by the
+     maps' bytes) and again view by view: the two .pt files equal bit for
+     bit. One expand and one forward-composite launch a depth render
+     (fusion_depth_renders), visited share above VISITED_FLOOR, mean cosine
+     of fused against palette features >= 0.9, the .pt reloads.
  9b. distill path: `python -m semantic_gaussians_torch.cli.distill` (in
      process) trains MinkUNet34A (56 -> 768) on the fusion phase's model
      and fused .pt: 2 cm voxels, a 200,000-voxel budget, augmentation on,
@@ -79,12 +95,16 @@ plain PyTorch version:
  10. eval path: ground-truth label images rendered from the palette's
      classes; `python -m semantic_gaussians_torch.cli.eval_segmentation`
      (in process) in mode 2d with pred_on_3d true (C = 21) and false
-     (C = 768): mIoU >= 0.9 each; mode labelmap on its own ground truth:
+     (C = 768): mIoU >= 0.9 each; the same two on EVAL_VIEWS frames whose
+     every 10th (evaluated) takes a fused ring view's pose in turn (9
+     views: a chunk of 8, one replay, and a view alone), each confusion
+     equal to the per-view run's; mode labelmap on its own ground truth:
      mIoU = 1; modes 3d, 2d_and_3d concat and 2d_and_3d argmax on the
      distilled checkpoint (C = 21): a finite mIoU, every labeled pixel
      counted.
  11. probe tools: `tools.exp_panel` and `tools.exp_panel2` at full size.
- 12. fusion, eval and probe times.
+ 12. fusion, eval and probe times (a fused and an evaluated view chunked
+     against view by view).
  13. expand at three shapes, cull on and off: the viewer (phase 2's), the
      timed training view and bench.py's scene law at 1M Gaussians (capacity
      1,003,520, pair budget 12,042,240; binning only, nothing rendered):
@@ -173,6 +193,8 @@ QUERY = f"w={WIDTH}&h={HEIGHT}&fov=1.1&pose={POSE}"
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 SLEEP_CYCLES = 4_000_000  # ~2 ms at the H100's 1.98 GHz boost clock (device_us)
+TRAIN_VIEW_PAIRS = 644_234  # live pairs of the timed training view (phase 8)
+EVAL_VIEWS, EVAL_CHUNK = 90, 8  # the eval scene's frames (every 10th evaluated); eval.chunk_views
 
 
 def fail(msg):
@@ -456,6 +478,8 @@ def main():
 
     # ---------------------------------------------------------------- 2b
     bwd, seg = check_backward_kernels(comp_cases, binning, grid, th, tw)
+    segsum_replay = check_segsum_replay(dev, {
+        d: (c["args"][0].shape[0], c["args"][2], TRAIN_VIEW_PAIRS) for d, c in seg.items()})
     tool_seg = check_tool_segsums(dev)
     probe = check_probe_kernels(dev)
     check_adversarial_cases(dev)
@@ -525,6 +549,20 @@ def main():
         "segsum_by_width": {str(d): v for d, v in kt["segsum"].items()},
         "segsum_by_shape": kt["segsum_tools"], "segsum_probe": pt}, default=str))
     cb, sg = kt["composite_bwd"], kt["segsum"]
+    # The multi-step dispatch's numbers, together (CUDA-graph replays against
+    # eager calls, all from this run).
+    g = step_times["graphed"]
+    print(json.dumps({"card": card, "dispatch": dict(
+        train_step_ms=dict(eager=step_times["step_ms"], graphed=g["step_ms"]),
+        train_busy_share=dict(
+            eager=step_times["profile"].get("device_busy_share")
+            if isinstance(step_times["profile"], dict) else step_times["profile"],
+            graphed=g["profile"].get("device_busy_share")
+            if isinstance(g["profile"], dict) else g["profile"]),
+        train_capture_s=g["capture_s"], train_graphs_100_steps=trained["graphs"],
+        train_eager_cli_s=trained["eager"]["cli_wall_s"], train_cli_s=trained["cli_wall_s"],
+        peak_gib_graphed_train=g["peak_gib"], eval_view_ms=evaluated["view_ms"],
+        fuse_view_ms=fused["times"]["fuse_scene_view_ms"])}))
 
     def segsum_numbers(v):
         return dict(ms=v["ms"], plain_ms=v["plain_ms"], library_ms=v["library_ms"],
@@ -547,7 +585,10 @@ def main():
                            "tools' D=16 shapes; library is index_add_",
                      by_width={str(d): segsum_numbers(v) for d, v in sg.items()},
                      by_shape={name: dict(segsum_numbers(v), p=v["p"], rows=v["rows"])
-                               for name, v in kt["segsum_tools"].items()}),
+                               for name, v in kt["segsum_tools"].items()},
+                     replay_check={str(d): [r["bit_identical"] and r["within_tolerance"]
+                                            for r in rows]
+                                   for d, rows in segsum_replay.items()}),
         # The two probe kernels of the JAX tools are one function with one
         # switch, and so is the port's: one entry per mode, each naming the
         # tool that times that mode first.
@@ -1175,26 +1216,34 @@ def train_through_cli(tmpdir, arrays, dev):
     print(f"training scene written in {time.perf_counter() - t0:.1f} s: {TRAIN_VIEWS} views "
           f"at {WIDTH}x{HEIGHT}, {len(arrays['means'])} points")
     out_dir = tmpdir / "train_out"
+
+    def cli(out, *extra):
+        return train_cli.main([
+            str(ROOT / "semantic_gaussians_torch" / "config" / "yamls" / "official_train.yaml"),
+            f"scene.scene_path={scene}", f"train.out_dir={out}",
+            f"train.iterations={TRAIN_ITERS}", f"train.test_iterations=[0,{TRAIN_ITERS}]",
+            "train.save_iterations=[]", "train.densify_from_iter=20",
+            "train.densification_interval=20", f"train.densify_until_iter={TRAIN_ITERS}",
+            "train.random_background=false", *extra])
+
     counters = all_counters()
     for c in counters:
         c.reset()
     t0 = time.perf_counter()
-    summary = train_cli.main([
-        str(ROOT / "semantic_gaussians_torch" / "config" / "yamls" / "official_train.yaml"),
-        f"scene.scene_path={scene}", f"train.out_dir={out_dir}",
-        f"train.iterations={TRAIN_ITERS}", f"train.test_iterations=[0,{TRAIN_ITERS}]",
-        "train.save_iterations=[]", "train.densify_from_iter=20",
-        "train.densification_interval=20", f"train.densify_until_iter={TRAIN_ITERS}",
-    ])
+    summary = cli(out_dir)  # the default: train.steps_per_dispatch = 10, graphed chunks
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {c.name: c.count for c in counters}
+    log = summary["logs"][0]
     print(f"train CLI: {TRAIN_ITERS} steps in {wall:.1f} s (scene load, init, tests and PLY "
-          f"save included); launches {launches}")
+          f"save included), chunks of {log['chunks'][0][1]}, CUDA graphs {log['graphs']}; "
+          f"launches {launches} (a replay counts what its graph launches)")
+    if log["graphs"]["replays"] != len(log["chunks"]) or max(n for _, n in log["chunks"]) != 10:
+        fail(f"the train CLI's chunks were not one replay each: {log['chunks']} {log['graphs']}")
+    eager = compare_eager_training(cli, tmpdir, summary)
     for name in ("expand", "composite_fwd", "composite_bwd", "segsum"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the training path")
-    log = summary["logs"][0]
     if not torch.isfinite(log["loss"]).all():
         fail(f"non-finite loss at steps {torch.nonzero(~torch.isfinite(log['loss'])).tolist()}")
     (_, psnr0), (_, psnr1) = summary["tests"][0], summary["tests"][TRAIN_ITERS]
@@ -1224,9 +1273,55 @@ def train_through_cli(tmpdir, arrays, dev):
     print("opacity reset: every opacity <= 0.01, opacity moments zero")
     return dict(
         scene=scene, launches=launches, psnr=(psnr0, psnr1), densify=log["densify"],
-        cli_wall_s=wall, budgets=sorted(set(log["budget"])),
-        loss_first_last=(float(log["loss"][0]), float(log["loss"][-1])),
+        cli_wall_s=wall, budgets=sorted(set(log["budget"])), graphs=log["graphs"],
+        loss_first_last=(float(log["loss"][0]), float(log["loss"][-1])), eager=eager,
     )
+
+
+def compare_eager_training(cli, tmpdir, graphed):
+    """The train CLI's 100 steps again, eagerly (steps_per_dispatch = 1),
+    twice, from the same seed: camera order, the budget of every step, the
+    densify events and the alive set must equal the graphed run's. Losses:
+    where the two eager runs agree bit for bit, the graphed run must too;
+    otherwise it must lie within the eager runs' own spread (the largest
+    |difference| between them at each step). Returns what was compared."""
+    import torch
+
+    glog, gstate = graphed["logs"][0], graphed["state"]
+    runs = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        out = cli(tmpdir / f"train_eager_{i}", "train.steps_per_dispatch=1")
+        torch.cuda.synchronize()
+        runs.append((out, time.perf_counter() - t0))
+    (a, wall_a), (b, wall_b) = runs
+    la, lb = a["logs"][0], b["logs"][0]
+    for name, out in (("eager", a), ("eager again", b)):
+        log = out["logs"][0]
+        for key in ("cameras", "budget", "densify"):
+            if log[key] != glog[key]:
+                fail(f"training: the {name} run's {key} differ from the graphed run's")
+        if not torch.equal(out["state"].alive, gstate.alive):
+            fail(f"training: the {name} run's alive set differs from the graphed run's")
+        if log["graphs"]["captures"]:
+            fail(f"training: the {name} run captured a graph at steps_per_dispatch = 1")
+    eager_bitwise = torch.equal(la["loss"], lb["loss"])
+    gap = (glog["loss"] - la["loss"]).abs()
+    spread = (la["loss"] - lb["loss"]).abs()
+    if eager_bitwise:
+        if not torch.equal(glog["loss"], la["loss"]):
+            fail(f"training: graphed losses differ from two bit-identical eager runs' by up to "
+                 f"{float(gap.max()):.3g}")
+        held = "bit for bit (the two eager runs agree bit for bit)"
+    else:
+        if bool((gap > spread).any()):
+            fail(f"training: graphed losses leave the eager runs' spread (largest gap "
+                 f"{float(gap.max()):.3g}, spread {float(spread.max()):.3g})")
+        held = f"within the eager runs' own spread (up to {float(spread.max()):.3g})"
+    print(f"train CLI eager x2 ({wall_a:.1f} s, {wall_b:.1f} s) against the graphed run: "
+          f"camera order, budgets, densify events and the alive set exact; losses {held}")
+    return dict(eager_bitwise=eager_bitwise, loss_held=held, cli_wall_s=(wall_a, wall_b),
+                max_loss_gap=float(gap.max()), eager_spread=float(spread.max()))
 
 
 def time_training(scene, dev, card):
@@ -1295,10 +1390,60 @@ def time_training(scene, dev, card):
     if isinstance(prof, dict):
         prof["composite_bwd_share"] = comp["composite_bwd"]["device_us"] / 1e3 / prof["device_ms"]
         prof["composite_fwd_share"] = comp["composite_fwd"]["device_us"] / 1e3 / prof["device_ms"]
+    graphed = time_graphed_training(scene, cfg, budget, dev)
     print(json.dumps({"card": card, "train_step_ms": step_ms, "train_step_parts_ms": parts,
                       "train_step_profile": prof, "pair_budget": budget,
-                      "num_pairs": int(metrics["num_pairs"]), "composite_on_train_view": comp}))
-    return dict(step_ms=step_ms, parts=parts, profile=prof, composite=comp)
+                      "num_pairs": int(metrics["num_pairs"]), "composite_on_train_view": comp,
+                      "graphed_train_step": graphed}))
+    def busy(p):
+        return f"{p['device_busy_share']:.3f}" if isinstance(p, dict) else p
+
+    print(f"train step: eager {step_ms:.3f} ms, busy {busy(prof)}; graphed "
+          f"{graphed['step_ms']:.3f} ms (a chunk of {graphed['k']} steps / {graphed['k']}), busy "
+          f"{busy(graphed['profile'])}; {card}")
+    return dict(step_ms=step_ms, parts=parts, profile=prof, composite=comp, graphed=graphed)
+
+
+def time_graphed_training(scene, cfg, budget, dev, k=10):
+    """train_scan_step at K = 10 (the train CLI's default chunk) from the
+    timed view's start state, on the training scene's views in turn, at SH
+    degree 3 and the timed step's budget: the capture (its warm-up and the
+    first replay, host clock), then the median host time of a chunk (one
+    replay, ended by a synchronize) over 10 chunks, divided by K; one
+    chunk's device-busy share; peak device memory over the capture and the
+    replays, with the graph cached."""
+    import torch
+
+    from semantic_gaussians_torch.io.scene import load_scene, realize_camera
+    from semantic_gaussians_torch.pipelines.train import (
+        init_train_state, stack_camera_chunk, train_scan_step,
+    )
+    from semantic_gaussians_torch.utils.graphs import GraphRunner
+
+    cams = [realize_camera(c, device=dev) for c in load_scene(scene).train_cameras]
+    stack = stack_camera_chunk([cams[i % len(cams)] for i in range(k)])
+    bgs = torch.zeros((k, 3), device=dev)
+    _, _, params, alive = training_view(scene, dev)
+    box = [init_train_state(params, alive)]
+    runner = GraphRunner(dev)
+
+    def chunk():
+        box[0], _ = train_scan_step(box[0], stack, bgs, cfg, 3, pair_budget=budget,
+                                    runner=runner)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chunk()
+    capture_s = time.perf_counter() - t0
+    chunk_ms = host_ms(chunk, 10)
+    prof = profile(chunk)
+    out = dict(k=k, step_ms=chunk_ms / k, chunk_ms=chunk_ms, capture_s=capture_s,
+               profile=prof, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               captures=runner.captures, replays=runner.replays)
+    del runner, box
+    return out
 
 
 def training_view(scene, dev):
@@ -1450,6 +1595,122 @@ def check_segsum(name, args, exact):
           f"{' summed in float64' if exact else ''}, bit-identical over two runs, "
           f"max |kernel - plain| = {err:.3g}{note}")
     return err
+
+
+def segsum_replay_feeds(d, p, num_rows, live, seed=SEED):
+    """Three fresh inputs of one shape for the replay check: (owners [p]
+    int32 numpy, limit, a numpy head of cot or None, a seed for the rest of
+    cot, drawn on the card): (1) random runs over `live` rows (the
+    main path's count), (2) a tools/summing_cases.py case of width d placed
+    at the front where there is one, else short random runs, (3) runs longer
+    than the look-back reaches (they defer to the carry levels) between
+    short ones. Streams (2) and (3) are short for the grid, so the kernel
+    looks back over tiles there: two replays in a row publish and read tags.
+    Owners past the limit repeat the last one."""
+    import numpy as np
+
+    from semantic_gaussians_torch.ops.segsum import MAX_HOPS, tile_shape
+    from semantic_gaussians_torch.tools import summing_cases
+
+    rng = np.random.default_rng(seed + d)
+    rows = tile_shape(d, p)[1]
+
+    def feed(owners, limit, head=None):
+        owners = np.minimum(np.asarray(owners, np.int64), num_rows - 1).astype(np.int32)
+        full = np.full(p, owners[-1], np.int32)
+        full[:owners.size] = owners
+        return full, int(limit), head, int(rng.integers(2**31))
+
+    def steps(n, rate, first=0):
+        s = (rng.uniform(size=n) < rate).astype(np.int64)
+        s[0] = 0
+        return first + np.cumsum(s)
+
+    feeds = [feed(steps(live, min(0.9, num_rows / live * 0.9)), live)]
+    cases = [c for c in summing_cases.segsum_cases() if c.cot.shape[1] == d and c.limit is None
+             and c.owners.size > rows]
+    if cases:
+        c = max(cases, key=lambda c: c.owners.size)
+        feeds.append(feed(c.owners, c.owners.size, c.cot))
+    else:
+        feeds.append(feed(steps(40 * rows, 0.3), 40 * rows))
+    long = (MAX_HOPS + 2) * rows
+    head = steps(rows + rows // 3, 0.3)
+    body = np.full(long, head[-1] + 1)
+    tail = steps(2 * long, 0.2, head[-1] + 2)
+    owners = np.r_[head, body, tail]
+    feeds.append(feed(owners, owners.size))
+    return feeds
+
+
+def check_segsum_replay(dev, shapes):
+    """Kernels 4/5 replayed from a CUDA graph on fresh inputs. For each
+    width d, shapes[d] = (p, num_rows, live): one call is captured on static
+    inputs [p, d], then replayed three times, each time after copying a
+    fresh input (segsum_replay_feeds) into the static buffers, with no other
+    call between the replays. Then each input is copied in again and the
+    kernel called eagerly: every replay must give the eager call's bits, and
+    hold the float64 plain sum at check_segsum's tolerance. Reports every
+    replay, and fails at the end if one differed. Returns the report."""
+    import torch
+
+    from semantic_gaussians_torch.ops import segsum
+
+    report, bad = {}, []
+    for d, (p, num_rows, live) in shapes.items():
+        feeds = segsum_replay_feeds(d, p, num_rows, live)
+        cot = torch.empty((p, d), dtype=torch.float32, device=dev)
+        owners = torch.empty(p, dtype=torch.int32, device=dev)
+        limit = torch.empty((), dtype=torch.int32, device=dev)
+
+        def fill(f):
+            owners.copy_(torch.from_numpy(f[0]))
+            limit.fill_(f[1])
+            torch.randn((p, d), generator=torch.Generator(dev).manual_seed(f[3]), device=dev,
+                        out=cot)
+            if f[2] is not None:
+                cot[:len(f[2])] = torch.from_numpy(f[2]).to(dev)
+
+        fill(feeds[0])
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # claims the scratch at this shape
+            segsum.segsum_contiguous(cot, owners, num_rows, limit)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = segsum.segsum_contiguous(cot, owners, num_rows, limit)
+        replays = []
+        for f in feeds:
+            fill(f)
+            graph.replay()
+            replays.append(out.clone())
+        torch.cuda.synchronize()
+        rows = []
+        for r, (f, got) in enumerate(zip(feeds, replays)):
+            fill(f)
+            want = segsum.segsum_contiguous(cot, owners, num_rows, limit)
+            args = (cot, owners, num_rows, limit)
+            ref = segsum.segsum_contiguous_plain(*args, acc_dtype=torch.float64)
+            slack = 2e-8 * segsum.segsum_contiguous_plain(cot.abs(), *args[1:],
+                                                          acc_dtype=torch.float64)
+            why = close_enough(got, ref, 1e-5, 1e-6, slack)
+            row = dict(limit=f[1], bit_identical=bool(torch.equal(got, want)),
+                       elements_differing=int((got != want).sum()),
+                       max_abs_vs_eager=float((got - want).abs().max()),
+                       max_abs_vs_float64=float((got.double() - ref).abs().max()),
+                       within_tolerance=why is None)
+            rows.append(row)
+            print(f"segsum replay D={d} (P={p}, rows={num_rows}) replay {r + 1}: {row}"
+                  f"{'' if why is None else '; ' + why}")
+            if not row["bit_identical"] or why is not None:
+                bad.append(f"D={d} replay {r + 1}")
+        report[d] = rows
+        del graph, out, replays
+    if bad:
+        fail(f"segsum under CUDA-graph replay differs from eager calls: {bad}")
+    return report
 
 
 def check_tool_segsums(dev):
@@ -1680,12 +1941,28 @@ def class_cones(means):
     return bins(means[:, 0] / z, 5) * 4 + bins((means[:, 1] - 0.15 * TRAIN_RADIUS) / z, 4)
 
 
+def fusion_depth_renders(views, dim, chunk=4):
+    """Depth renders the fusion CLI launches for `views` views of `dim`
+    channels at chunk_views = `chunk`: one a view without chunks; with
+    them, every slot of every chunk (the last one padded) and the warm-up
+    of the chunk's graph before its capture (pipelines/fusion.py)."""
+    from semantic_gaussians_torch.pipelines.fusion import _CHUNK_FEAT_BYTES_BUDGET
+
+    k = min(chunk, max(1, _CHUNK_FEAT_BYTES_BUDGET // (4 * FUSE_W * FUSE_H * dim)))
+    if k <= 1 or views <= 1:
+        return views
+    return -(-views // k) * k + k
+
+
 def fuse_through_cli(tmpdir, scene, arrays, dev, card):
     """The fusion main path: the fusion CLI, in process, on the training
     scene's 8 ring views with one precomputed 648x484x768 float16 feature
-    map per view, every launch count set to 0 just before and read just
-    after. The maps are rendered from a class palette, so the right fused
-    feature of every Gaussian is known. Returns what the eval phase needs."""
+    map per view, in chunks (the YAML's chunk_views = 4, capped at 2 by the
+    maps' bytes: one CUDA-graph replay a chunk), every launch count set to
+    0 just before and read just after; then again view by view
+    (chunk_views = 1): the two .pt files must be equal bit for bit. The
+    maps are rendered from a class palette, so the right fused feature of
+    every Gaussian is known. Returns what the eval phase needs."""
     import numpy as np
     import torch
 
@@ -1698,7 +1975,8 @@ def fuse_through_cli(tmpdir, scene, arrays, dev, card):
     from semantic_gaussians_torch.models.predictors import RandomFeatureProvider, make_predictor
     from semantic_gaussians_torch.pipelines.eval_segmentation import text_feature_matrix
     from semantic_gaussians_torch.pipelines.fusion import (
-        FusionConfig, _intrinsic_for, fuse_view, load_fused_features, upload_map, view_depth,
+        FusionConfig, _intrinsic_for, fuse_scene, fuse_view, load_fused_features, upload_map,
+        view_depth,
     )
     from semantic_gaussians_torch.renderer import render_chn
 
@@ -1740,9 +2018,22 @@ def fuse_through_cli(tmpdir, scene, arrays, dev, card):
     wall = time.perf_counter() - t0
     print(f"fusion CLI: {summary['views']} views fused in {wall:.1f} s (scene and model load "
           f"and the .pt save included); launches {launches}")
-    for name in ("expand", "composite_fwd"):  # one depth render per view
-        if launches[name] != len(cams):
-            fail(f"fusion launched {name} {launches[name]} times for {len(cams)} views")
+    renders = fusion_depth_renders(len(cams), FEAT_DIM)
+    for name in ("expand", "composite_fwd"):  # one a depth render
+        if launches[name] != renders:
+            fail(f"fusion launched {name} {launches[name]} times for {renders} depth renders "
+                 f"of {len(cams)} views")
+    t0 = time.perf_counter()
+    per_view = fusion_cli.main([str(yaml), *overrides, f"fusion.out_dir={tmpdir / 'fused_per_view'}",
+                                "fusion.chunk_views=1"])
+    per_view_wall = time.perf_counter() - t0
+    got, want = (torch.load(p, weights_only=True) for p in (summary["out_path"],
+                                                            per_view["out_path"]))
+    if not (torch.equal(got["feat"], want["feat"]) and torch.equal(got["mask_full"],
+                                                                   want["mask_full"])):
+        fail("fusion: the chunked CLI's .pt differs from the per-view CLI's")
+    print(f"fusion CLI view by view: {per_view_wall:.1f} s; its .pt equals the chunked run's "
+          f"bit for bit (features and mask)")
     feats, visited = load_fused_features(summary["out_path"], capacity=params.capacity,
                                          device=dev)
     if int(visited.sum()) != summary["visited"] or bool(visited[~alive].any()):
@@ -1788,8 +2079,25 @@ def fuse_through_cli(tmpdir, scene, arrays, dev, card):
     del fmap, depth, sem, counts, staging
     parts = {k: statistics.median(r[i] for r in runs[1:])
              for i, k in enumerate(("map_load", "map_copy", "depth", "accumulate"))}
-    times = dict(fuse_view_ms=sum(parts.values()), parts_ms=parts,
-                 cli_wall_s=wall, views=len(cams))
+    # A fused view through fuse_scene over the 8 views, chunked (K = 2, a
+    # capture a call) against view by view, host clock ending in a
+    # synchronize; the float32 features must agree bit for bit.
+    scene_ms, scene_out = {}, {}
+    for name, chunk in (("chunked", 4), ("per_view", 1), ("chunked_again", 4)):
+        cfg_c = dataclasses.replace(fcfg, chunk_views=chunk)
+        t0 = time.perf_counter()
+        scene_out[name] = fuse_scene(params, alive, cams, provider, cfg_c,
+                                     image_paths=[ci.image_path for ci in infos])
+        torch.cuda.synchronize()
+        scene_ms[name] = (time.perf_counter() - t0) * 1e3 / len(cams)
+    for name in ("per_view", "chunked_again"):
+        if not all(torch.equal(a, b) for a, b in zip(scene_out["chunked"], scene_out[name])):
+            fail(f"fuse_scene: chunked float32 features differ from the {name} run's")
+    del scene_out
+    print(f"fuse_scene a view: chunked {scene_ms['chunked']:.1f} / {scene_ms['chunked_again']:.1f}"
+          f" ms, view by view {scene_ms['per_view']:.1f} ms; float32 features bit for bit")
+    times = dict(fuse_view_ms=sum(parts.values()), parts_ms=parts, fuse_scene_view_ms=scene_ms,
+                 cli_wall_s=wall, per_view_cli_wall_s=per_view_wall, views=len(cams))
     print(json.dumps({"card": card, "fusion": dict(
         times, visited=summary["visited"], visited_share=share,
         cosine_mean=float(cos.mean()), launches=launches)}))
@@ -2097,11 +2405,39 @@ def time_distill(item, fused, out_dir, dev, card):
     return times
 
 
+def write_eval_scene(root, scene, views=EVAL_VIEWS):
+    """A Blender-layout scene of `views` frames, of which the eval CLI
+    evaluates every 10th (EVAL_VIEWS // 10 views). Frame i takes the pose
+    of training view (i // 10) mod TRAIN_VIEWS, so the evaluated views are
+    the fused ones, in turn (as the eval phase's single view was before it
+    had a ring); each frame is a hard link to the training scene's first
+    image (the eval CLI reads only its size). It is named as the training
+    scene, whose fused .pt the CLI looks up by name. Returns its
+    directory."""
+    import os
+
+    (root / "train").mkdir(parents=True)
+    meta = json.loads((scene / "transforms_train.json").read_text())
+    src = scene / (meta["frames"][0]["file_path"] + ".png")
+    frames = []
+    for i in range(views):
+        os.link(src, root / "train" / f"e_{i}.png")
+        pose = meta["frames"][(i // 10) % len(meta["frames"])]["transform_matrix"]
+        frames.append({"file_path": f"./train/e_{i}", "transform_matrix": pose})
+    (root / "transforms_train.json").write_text(
+        json.dumps({"camera_angle_x": meta["camera_angle_x"], "frames": frames}))
+    return root
+
+
 def eval_through_cli(tmpdir, scene, fused, distilled, dev, card):
-    """The eval main path: the eval CLI, in process, in mode 2d with
-    pred_on_3d true and false, in mode labelmap on its own ground truth,
-    then in modes 3d, 2d_and_3d concat and 2d_and_3d argmax on the
-    distilled checkpoint; the launch counts run over all six."""
+    """The eval main path: the eval CLI, in process, on the training scene
+    (its first ring view evaluated) in mode 2d with pred_on_3d true and
+    false, in mode labelmap on its own ground truth, then in modes 3d,
+    2d_and_3d concat and 2d_and_3d argmax on the distilled checkpoint; and
+    in mode 2d both ways on EVAL_VIEWS frames (write_eval_scene:
+    EVAL_VIEWS // 10 evaluated, one chunk of 8 in one CUDA-graph replay and
+    one view alone). The launch counts run over all eight. Those two again
+    view by view (chunk_views = 1): the confusion matrices must be equal."""
     import numpy as np
     import torch
     from PIL import Image
@@ -2109,60 +2445,100 @@ def eval_through_cli(tmpdir, scene, fused, distilled, dev, card):
     from semantic_gaussians_torch.cli import eval_segmentation as eval_cli
     from semantic_gaussians_torch.config.config import default_config_dir
     from semantic_gaussians_torch.data.scannet_constants import COCOMAP_CLASS_LABELS
+    from semantic_gaussians_torch.io.scene import load_scene, realize_camera
     from semantic_gaussians_torch.ops import composite
     from semantic_gaussians_torch.pipelines.eval_segmentation import (
-        eval_views, predict_label_image,
+        _eval_chunk, eval_views, predict_label_image,
     )
     from semantic_gaussians_torch.pipelines.fusion import load_fused_features
+    from semantic_gaussians_torch.pipelines.train import stack_camera_chunk
+    from semantic_gaussians_torch.utils.graphs import GraphRunner
 
     params, alive, cls, text, infos, cams = fused["state"]
     k = len(COCOMAP_CLASS_LABELS)
     eye = torch.eye(k + 1, device=dev)
     onehot = eye[cls + 1] * alive[:, None]
+
+    def write_labels(label_dir, infos, cams):
+        """Ground truth of the views the CLI evaluates (every 10th)."""
+        label_dir.mkdir()
+        gts = {}
+        for ci, cam in list(zip(infos, cams))[::10]:
+            gt = predict_label_image(cam, params, alive, onehot, eye, pred_on_3d=True)
+            gts[ci.image_name] = gt.cpu().numpy().astype(np.uint8)
+            Image.fromarray(gts[ci.image_name]).save(label_dir / f"{ci.image_name}.png")
+        return gts
+
     label_dir = tmpdir / "labels"
-    label_dir.mkdir()
-    gts = {}
-    for ci, cam in list(zip(infos, cams))[::10]:  # the views the CLI evaluates
-        gt = predict_label_image(cam, params, alive, onehot, eye, pred_on_3d=True)
-        gts[ci.image_name] = gt.cpu().numpy().astype(np.uint8)
-        Image.fromarray(gts[ci.image_name]).save(label_dir / f"{ci.image_name}.png")
+    gts = write_labels(label_dir, infos, cams)
     unlabeled = float(np.mean([(g == k).mean() for g in gts.values()]))
     print(f"eval scene: {len(gts)} ground-truth label image(s) of {FUSE_W}x{FUSE_H}, "
           f"{unlabeled:.3f} of the pixels unlabeled")
-    base = [
-        str(default_config_dir() / "eval.yaml"), f"scene.scene_path={scene}",
-        f"model.model_dir={fused['model_dir']}", f"fusion.out_dir={fused['fusion_out']}",
-        f"fusion.embedding_dim={FEAT_DIM}", f"eval.width={FUSE_W}", f"eval.height={FUSE_H}",
-        f"eval.label_dir={label_dir}", f"eval.log_file={tmpdir / 'eval_result.log'}",
-    ]
+    ring = write_eval_scene(tmpdir / "eval" / scene.name, scene)
+    ring_infos = load_scene(ring, eval_split=False).train_cameras
+    ring_cams = [realize_camera(ci, with_image=False).resized(FUSE_W, FUSE_H).to(dev)
+                 for ci in ring_infos]
+    ring_gts = write_labels(tmpdir / "ring_labels", ring_infos, ring_cams)
+    ring_labeled = sum(int((g < k).sum()) for g in ring_gts.values())
 
+    def base(at, labels):
+        return [
+            str(default_config_dir() / "eval.yaml"), f"scene.scene_path={at}",
+            f"model.model_dir={fused['model_dir']}", f"fusion.out_dir={fused['fusion_out']}",
+            f"fusion.embedding_dim={FEAT_DIM}", f"eval.width={FUSE_W}", f"eval.height={FUSE_H}",
+            f"eval.label_dir={labels}", f"eval.log_file={tmpdir / 'eval_result.log'}",
+            f"eval.chunk_views={EVAL_CHUNK}",
+        ]
+
+    one, chunked = base(scene, label_dir), base(ring, tmpdir / "ring_labels")
     distill = [f"distill.model_dir={distilled['out_dir']}", f"distill.iteration={distilled['epochs']}",
                f"distill.model_3d={DISTILL_ARCH}", f"distill.voxel_size={DISTILL_VOXEL}",
                f"distill.voxel_budget={DISTILL_BUDGET}", "eval.pred_on_3d=true"]
+    two_d = (("2d_onehot", "true"), ("2d_features", "false"))
 
     def run_all():
-        return {
-            "2d_onehot": eval_cli.main(base + ["eval.eval_mode=2d", "eval.pred_on_3d=true"]),
-            "2d_features": eval_cli.main(base + ["eval.eval_mode=2d", "eval.pred_on_3d=false"]),
-            "labelmap": eval_cli.main(base + ["eval.eval_mode=labelmap"]),
-            "3d": eval_cli.main(base + distill + ["eval.eval_mode=3d"]),
-            "2d_and_3d_concat": eval_cli.main(base + distill + [
+        out = {
+            "2d_onehot": eval_cli.main(one + ["eval.eval_mode=2d", "eval.pred_on_3d=true"]),
+            "2d_features": eval_cli.main(one + ["eval.eval_mode=2d", "eval.pred_on_3d=false"]),
+            "labelmap": eval_cli.main(one + ["eval.eval_mode=labelmap"]),
+            "3d": eval_cli.main(one + distill + ["eval.eval_mode=3d"]),
+            "2d_and_3d_concat": eval_cli.main(one + distill + [
                 "eval.eval_mode=2d_and_3d", "eval.feature_fusion=concat"]),
-            "2d_and_3d_argmax": eval_cli.main(base + distill + [
+            "2d_and_3d_argmax": eval_cli.main(one + distill + [
                 "eval.eval_mode=2d_and_3d", "eval.feature_fusion=argmax"]),
         }
+        for name, p3 in two_d:
+            out[f"{name}_chunked"] = eval_cli.main(
+                chunked + ["eval.eval_mode=2d", f"eval.pred_on_3d={p3}"])
+        return out
 
     results, launches = count_launches("eval", run_all, ("expand", "composite_fwd"))
     widths = composite.LAUNCHES.by_key
     print(f"eval CLI: launches {launches}; forward composite by channel width {widths}")
-    # one render a view a rendering mode: C = K + 1 (one-hot) in 2d_onehot and
-    # the three distilled modes, C = 768 in 2d_features; labelmap renders none
-    if launches["expand"] != 5 * len(gts):
-        fail(f"eval launched expand {launches['expand']} times for 5 x {len(gts)} renders")
+    # One render a view a rendering mode on the training scene: C = K + 1
+    # (one-hot) in 2d_onehot and the three distilled modes, C = 768 in
+    # 2d_features; labelmap renders none. On the ring, each view once and
+    # the chunk's views once more in the warm-up before the capture.
+    per_ring = len(ring_gts) + (EVAL_CHUNK if len(ring_gts) >= EVAL_CHUNK else 0)
+    if launches["expand"] != 5 * len(gts) + 2 * per_ring:
+        fail(f"eval launched expand {launches['expand']} times for 5 x {len(gts)} + 2 x "
+             f"{per_ring} renders")
     for c, renders in ((k + 1, 4), (FEAT_DIM, 1)):  # two kernels a call from LIST_MIN_CHANNELS on
         per_call = 2 if c >= composite.LIST_MIN_CHANNELS else 1
-        if widths.get(c, 0) != per_call * renders * len(gts):
+        if widths.get(c, 0) != per_call * (renders * len(gts) + per_ring):
             fail(f"eval launched the forward composite at C={c} {widths.get(c, 0)} times")
+    for name, p3 in two_d:
+        got = results[f"{name}_chunked"][2]
+        alone = eval_cli.main(chunked + ["eval.eval_mode=2d", f"eval.pred_on_3d={p3}",
+                                         "eval.chunk_views=1"])
+        if not np.array_equal(alone[2], got):
+            fail(f"eval {name}: the chunked confusion differs from the per-view one by "
+                 f"{int(np.abs(alone[2] - got).sum())} counts")
+        if int(got.sum()) != ring_labeled:
+            fail(f"eval {name} chunked: the confusion counts {int(got.sum())} labeled pixels")
+    print(f"eval CLI on the ring ({len(ring_gts)} views, chunks of {EVAL_CHUNK}), modes 2d: "
+          f"confusion matrices equal to the per-view runs'; mIoU "
+          f"{results['2d_onehot_chunked'][0]:.4f} / {results['2d_features_chunked'][0]:.4f}")
     miou = {name: r[0] for name, r in results.items()}
     for name in ("2d_onehot", "2d_features"):
         if not miou[name] >= 0.9:
@@ -2176,7 +2552,7 @@ def eval_through_cli(tmpdir, scene, fused, distilled, dev, card):
           f"argmax {miou['2d_and_3d_argmax']:.4f}")
     pixels = len(gts) * FUSE_W * FUSE_H
     for name, (_, _, conf) in results.items():
-        if int(conf.sum()) != round(pixels * (1 - unlabeled)):
+        if not name.endswith("_chunked") and int(conf.sum()) != round(pixels * (1 - unlabeled)):
             fail(f"eval {name}: the confusion counts {int(conf.sum())} labeled pixels")
 
     # One evaluated view per path (host clock ending in the confusion's copy).
@@ -2189,6 +2565,30 @@ def eval_through_cli(tmpdir, scene, fused, distilled, dev, card):
                                                COCOMAP_CLASS_LABELS, pred_on_3d=p3), 5)
         for name, p3 in (("2d_onehot", True), ("2d_features", False))
     }
+    # An evaluated view over the ring's evaluated views: a whole eval_views
+    # call a view, chunked (a capture a call, one replay, the tail alone) and
+    # view by view; and a chunk's replay alone a view (_eval_chunk on a kept
+    # runner).
+    ev_cams, ev_gts = ring_cams[::10], list(ring_gts.values())
+    stack = stack_camera_chunk(ev_cams[:EVAL_CHUNK])
+    gt_stack = torch.from_numpy(np.stack(ev_gts[:EVAL_CHUNK]).astype(np.int32)).to(dev)
+    text_t = torch.from_numpy(text).to(dev)
+    for name, p3 in (("2d_onehot", True), ("2d_features", False)):
+        runner = GraphRunner(dev)
+        conf0 = torch.zeros((k, k + 1), dtype=torch.int64, device=dev)
+
+        def replay(p3=p3, runner=runner, conf0=conf0):
+            _eval_chunk(runner, stack, gt_stack, conf0, params, alive, feats, text_t, k, p3,
+                        "tiled")
+            torch.cuda.synchronize()
+
+        view_ms[name] = dict(one_view=view_ms[name], **{
+            f"call_{mode}": host_ms(lambda p3=p3, c=c: eval_views(
+                ev_cams, ev_gts, params, alive, feats, text, COCOMAP_CLASS_LABELS,
+                pred_on_3d=p3, chunk_views=c), 3) / len(ev_gts)
+            for mode, c in (("chunked", EVAL_CHUNK), ("per_view", 1))},
+            replay=host_ms(replay, 5) / EVAL_CHUNK)
+        del runner
     print(json.dumps({"card": card, "eval": dict(
         miou=miou, macc={n: r[1] for n, r in results.items()}, eval_view_ms=view_ms,
         launches=launches, composite_fwd_by_channels={str(c): v for c, v in widths.items()})}))
@@ -2461,10 +2861,12 @@ def fuse_2d_through_cli(name, tmpdir, scene, fused, overrides, dev):
     summary, launches = count_launches(f"fusion {name}", lambda: fusion_cli.main(args),
                                        ("expand", "composite_fwd"))
     wall = time.perf_counter() - t0
-    for k in ("expand", "composite_fwd"):  # one depth render a view
-        if launches[k] != VIEWS_2D:
-            fail(f"fusion {name} launched {k} {launches[k]} times for {VIEWS_2D} views")
     feats, visited = load_fused_features(summary["out_path"], device=dev)
+    renders = fusion_depth_renders(VIEWS_2D, feats.shape[1])
+    for k in ("expand", "composite_fwd"):  # one a depth render
+        if launches[k] != renders:
+            fail(f"fusion {name} launched {k} {launches[k]} times for {renders} depth renders "
+                 f"of {VIEWS_2D} views")
     norms = feats[visited].norm(dim=-1)
     if int(visited.sum()) != summary["visited"] or summary["views"] != VIEWS_2D:
         fail(f"fusion {name}: the .pt does not reload to the CLI's summary {summary}")
@@ -3258,5 +3660,30 @@ def distributed_phase(tmpdir, scene, fused, dev, card):
     return dict(launches=launches, wall_s=wall)
 
 
+def segsum_replay_only():
+    """`python3 chip_smoke.py --segsum-replay`: builds the segment sum and
+    runs check_segsum_replay alone, at the main path's shapes without the
+    scene (P = the 100k scene's pair budget, its 100,001 output rows, the
+    timed training view's live pairs), for a quick look at a tree's kernel
+    (an earlier commit's too: copy this file into its checkout)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from semantic_gaussians_torch.ops import kernels
+    from semantic_gaussians_torch.ops.binning import default_pair_budget
+
+    print(f"card: {card_line()}")
+    kernels.build_all(["segsum"])
+    p = default_pair_budget(N_GAUSSIANS)
+    shape = (p, N_GAUSSIANS + 1, TRAIN_VIEW_PAIRS)
+    print(json.dumps({"segsum_replay": check_segsum_replay(torch.device("cuda:0"), {
+        9: shape, 6 + FEAT_DIM: shape})}))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--segsum-replay"]:
+        segsum_replay_only()
+    else:
+        main()

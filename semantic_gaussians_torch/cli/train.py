@@ -9,9 +9,12 @@ Trains on CUDA (`train.device`, default cuda) and raises if CUDA is absent
 unless the CPU was asked for (`--device cpu` or `train.device=cpu`).
 Writes `<train.out_dir or output/<exp_name>>/`: config.yaml, the PLY at
 each save milestone and the last iteration, and a checkpoint (`ckpt_<it>.pt`)
-at each checkpoint milestone. Prints test-view L1 / PSNR (the first 8 test
+at each checkpoint milestone, and TensorBoard logs under `tb_logs/` (where
+tensorboard is installed). Prints test-view L1 / PSNR (the first 8 test
 views) at each test milestone; a milestone of 0 evaluates the initial
-state. Not ported yet: TensorBoard logging.
+state. `train.steps_per_dispatch` (default 10) steps go in one chunk, on
+CUDA one CUDA-graph replay (pipelines.train.train_loop); 1 runs every step
+eagerly.
 
 With `pipeline.distributed=true` every process is one rank (a card, or a
 CPU process with `--device cpu`, which runs on gloo): the process group is
@@ -174,6 +177,8 @@ def _train(cfg, t, device, distributed) -> dict:
             state, log = train_loop(
                 state, cameras, tc, generator, extent, num_iters=target - done,
                 backend=backend, log_every=100, pair_budget=budget, iter_offset=done,
+                steps_per_dispatch=int(t.get("steps_per_dispatch", 10)),
+                tb_dir=str(out_dir / "tb_logs"),
             )
             summary["logs"].append(log)
             done = target

@@ -1,5 +1,7 @@
-"""Headless render/view service over HTTP (port of the root view_server.py).
+"""Render/view service over HTTP (port of the root view_server.py).
 
+  GET  /        the interactive page (orbit / pan / dolly, modes, prompts,
+                edits, replay), which calls the routes below
   GET  /render?mode=RGB|Depth|Semantic|Relevancy
               &x=&y=&z=&yaw=&pitch=      camera pose (orbit params), OR
               &quat=w,x,y,z&pos=x,y,z    client camera pose (wxyz), OR
@@ -37,6 +39,110 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+
+# The interactive page at GET / (the root view_server.py's, byte for byte):
+# drag-orbit / wheel-dolly / shift-drag-pan camera streamed as a full c2w
+# `pose`, render mode + prompt controls, text-driven edit ops, dynamic
+# wall-clock replay.
+_PAGE = """<!doctype html><meta charset=utf-8><title>semantic-gaussians viewer</title>
+<style>
+ body{font-family:system-ui,sans-serif;margin:0;display:flex;background:#16181d;color:#dde}
+ #side{width:270px;padding:12px;flex:none;font-size:13px}
+ #side label{display:block;margin-top:8px;color:#9ab}
+ #side input,#side select{width:100%;box-sizing:border-box;background:#23262e;
+  color:#dde;border:1px solid #444;border-radius:4px;padding:3px}
+ #side button{margin-top:6px;padding:4px 10px;background:#2d5;border:0;border-radius:4px}
+ #view{flex:1;display:flex;align-items:center;justify-content:center;height:100vh}
+ #v{max-width:100%;max-height:100%;cursor:grab;user-select:none;-webkit-user-drag:none}
+ #stat{color:#686;font-size:11px;margin-top:10px;white-space:pre-line}
+ fieldset{border:1px solid #333;border-radius:6px;margin-top:12px}
+</style>
+<body>
+<div id=side>
+ <b>semantic-gaussians-tpu</b>
+ <label>render mode</label>
+ <select id=m><option>RGB<option>Depth<option>Semantic<option>Relevancy</select>
+ <label>prompts (Semantic/Relevancy)</label>
+ <input id=p value="wall,floor,chair,table">
+ <label>resolution</label>
+ <select id=res><option>480x360<option selected>640x480<option>960x720</select>
+ <label>vertical fov <span id=fovv>1.0</span> rad</label>
+ <input id=fov type=range min=0.4 max=1.8 step=0.05 value=1.0>
+ <fieldset><legend>scene edit</legend>
+  <label>op</label>
+  <select id=em><option>Remove<option>Color<option>Size<option>Move</select>
+  <label>edit prompts</label><input id=ep placeholder="chair">
+  <label>preserve prompts</label><input id=pp placeholder="floor">
+  <button id=apply>apply</button> <button id=reset>reset</button>
+ </fieldset>
+ <fieldset><legend>dynamic scene</legend>
+  <label><input id=play type=checkbox style="width:auto"> wall-clock replay</label>
+  <label>fps</label><input id=fps type=number value=10 min=1 max=60>
+  <label>timestep</label><input id=t type=number value=0 min=0>
+ </fieldset>
+ <div id=stat>drag orbit - wheel dolly - shift-drag pan</div>
+</div>
+<div id=view><img id=v draggable=false></div>
+<script>
+const $=id=>document.getElementById(id);
+// Orbit state: camera on a sphere around `tgt` (look-at, +y up).
+let yaw=0, pitch=0.25, r=3.0, tgt=[0,0,0];
+function c2w(){
+ const cp=Math.cos(pitch), sp=Math.sin(pitch);
+ const pos=[tgt[0]+r*Math.sin(yaw)*cp, tgt[1]+r*sp, tgt[2]-r*Math.cos(yaw)*cp];
+ let f=[tgt[0]-pos[0],tgt[1]-pos[1],tgt[2]-pos[2]];
+ const nf=Math.hypot(...f); f=f.map(v=>v/nf);
+ const up=[0,1,0];
+ let ri=[up[1]*f[2]-up[2]*f[1], up[2]*f[0]-up[0]*f[2], up[0]*f[1]-up[1]*f[0]];
+ const nr=Math.hypot(...ri)||1; ri=ri.map(v=>v/nr);
+ const u=[f[1]*ri[2]-f[2]*ri[1], f[2]*ri[0]-f[0]*ri[2], f[0]*ri[1]-f[1]*ri[0]];
+ // row-major c2w, columns = [right, up, fwd] (ring-camera convention)
+ return [ri[0],u[0],f[0],pos[0], ri[1],u[1],f[1],pos[1],
+         ri[2],u[2],f[2],pos[2], 0,0,0,1];
+}
+let inflight=false, dirty=false, lastT=0;
+function refresh(){
+ if(inflight){dirty=true;return}
+ inflight=true; const t0=performance.now();
+ const [w,h]=$('res').value.split('x');
+ const q=new URLSearchParams({mode:$('m').value, pose:c2w().join(','),
+  w:w,h:h,fov:$('fov').value, prompts:$('p').value,
+  play:$('play').checked?1:0, fps:$('fps').value, t:$('t').value, _:Date.now()});
+ const img=new Image();
+ img.onload=()=>{$('v').src=img.src; inflight=false; lastT=performance.now()-t0;
+  $('stat').textContent=`render ${lastT.toFixed(0)} ms  r=${r.toFixed(2)}`+
+   `  yaw=${yaw.toFixed(2)} pitch=${pitch.toFixed(2)}`;
+  if(dirty||$('play').checked){dirty=false;refresh()}};
+ img.onerror=()=>{inflight=false;$('stat').textContent='render failed'};
+ img.src='/render?'+q;
+}
+// pointer controls
+let drag=null;
+$('v').addEventListener('pointerdown',e=>{drag=[e.clientX,e.clientY,e.shiftKey];
+ $('v').setPointerCapture(e.pointerId)});
+$('v').addEventListener('pointerup',()=>drag=null);
+$('v').addEventListener('pointermove',e=>{
+ if(!drag)return; const dx=e.clientX-drag[0], dy=e.clientY-drag[1];
+ drag=[e.clientX,e.clientY,drag[2]];
+ if(drag[2]){ // pan target in the camera plane
+  const M=c2w(), s=0.002*r;
+  tgt=[tgt[0]-(M[0]*dx-M[1]*dy)*s, tgt[1]-(M[4]*dx-M[5]*dy)*s,
+       tgt[2]-(M[8]*dx-M[9]*dy)*s];
+ }else{ yaw+=dx*0.008; pitch=Math.min(1.5,Math.max(-1.5,pitch+dy*0.008)); }
+ refresh()});
+$('v').addEventListener('wheel',e=>{e.preventDefault();
+ r=Math.min(40,Math.max(0.2,r*Math.exp(e.deltaY*0.001)));refresh()},{passive:false});
+$('fov').oninput=()=>{$('fovv').textContent=$('fov').value;refresh()};
+for(const id of ['m','p','res','play','fps','t'])$(id).oninput=refresh;
+$('apply').onclick=async()=>{
+ const b=new URLSearchParams({mode:$('em').value,edit:$('ep').value,
+  preserve:$('pp').value});
+ const res=await fetch('/edit',{method:'POST',body:b});
+ $('stat').textContent='edit: '+await res.text(); refresh()};
+$('reset').onclick=async()=>{await fetch('/reset',{method:'POST'});refresh()};
+refresh();
+</script>"""
+
 
 from ..config.config import load_config, pretty
 from ..core.gaussians import params_from_numpy
@@ -207,7 +313,9 @@ def make_handler(state: ViewerState):
         def do_GET(self):
             url = urllib.parse.urlparse(self.path)
             q = urllib.parse.parse_qs(url.query)
-            if url.path == "/render":
+            if url.path == "/":
+                self._send(200, _PAGE.encode(), "text/html")
+            elif url.path == "/render":
                 try:
                     img = state.render(q)
                 except Exception as e:  # boundary: report the failure to the client

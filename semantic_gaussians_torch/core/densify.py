@@ -64,7 +64,9 @@ def add_stats(
     """Accumulate view-space gradient norms of visible Gaussians, scaled to
     the reference's NDC half extents."""
     visible = radii > 0
-    scale = torch.tensor([[img_width * 0.5, img_height * 0.5]], device=mean2d_grad.device)
+    # filled on the device, not copied from the host (a CUDA graph captures this)
+    scale = torch.cat([torch.full((1, 1), img_width * 0.5, device=mean2d_grad.device),
+                       torch.full((1, 1), img_height * 0.5, device=mean2d_grad.device)], 1)
     norm = torch.linalg.norm(mean2d_grad * scale, dim=-1)
     zero = torch.zeros((), dtype=torch.float32, device=norm.device)
     return DensifyState(

@@ -60,8 +60,8 @@ def lr_tree(hyper: TrainHyper, spatial_lr_scale: float, step) -> GaussianParams:
     )
     xyz = xyz_sched(step)
 
-    def const(v):
-        return torch.tensor(v, dtype=torch.float32, device=xyz.device)
+    def const(v):  # a fill on the device: no copy from the host (capturable)
+        return torch.full((), v, dtype=torch.float32, device=xyz.device)
 
     return GaussianParams(
         means=xyz,
@@ -92,8 +92,8 @@ def adam_update(
     count = state.count + 1
     t = count.to(torch.float32)
     b1, b2 = hyper.beta1, hyper.beta2
-    bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=t.device), t)
-    bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=t.device), t)
+    bc1 = 1.0 - torch.pow(torch.full((), b1, dtype=torch.float32, device=t.device), t)
+    bc2 = 1.0 - torch.pow(torch.full((), b2, dtype=torch.float32, device=t.device), t)
     new_p, new_m, new_v = {}, {}, {}
     for f in FIELDS:
         p, g = getattr(params, f), getattr(grads, f)

@@ -65,6 +65,13 @@
 //     rows before the first and after the last owner are shared out over
 //     the whole grid of the first level, and a gap inside the stream is
 //     zeroed by the tile that sees owners step over it.
+//   * The call's epoch lives on the device, in the first word of the tags'
+//     buffer: a one-block kernel raises it by one before level 0, on the
+//     same stream, and every level reads it when it starts. So every
+//     launch, eager or replayed from a CUDA graph (which freezes launch
+//     arguments), runs under an epoch that no earlier launch on that buffer
+//     used, and a tag of an earlier call never passes for one of this call.
+//     At 2^31 - 1 the same kernel zeroes the tags and starts again at 1.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -485,10 +492,13 @@ template <int V>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) segsum_kernel(
     const float* __restrict__ cot, const int32_t* __restrict__ owners,
     const int32_t* __restrict__ limit, int P, int level, int inline_rest, int num_rows,
-    Shape sh, float* scratch, int32_t* ticket, Tag* tags, int epoch,
-    float* __restrict__ out) {
+    Shape sh, float* scratch, int32_t* ticket, Tag* flags, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int is_last_block;
+  // This call's epoch, raised by bump_epoch before level 0 (launches after a
+  // level's last tile find it unchanged), and the look-back's tags after it.
+  const int epoch = static_cast<int>(static_cast<unsigned>(flags[0]));
+  Tag* tags = flags + 1;
   int first = blockIdx.x, stride = gridDim.x;
   // Entries valid at the level before and at this one.
   int below = level ? valid_entries(limit, P, level - 1, sh.rows) : 0;
@@ -531,24 +541,46 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) segsum_kernel(
   }
 }
 
+// Raises the epoch in flags[0] by one before a call's first level. Where it
+// would pass 2^31 - 1, the tags (flags[1 .. words)) are zeroed and the epoch
+// starts again at 1, so that no tag left by an earlier call carries it.
+__global__ void bump_epoch(Tag* flags, long long words) {
+  __shared__ unsigned now;
+  if (threadIdx.x == 0) now = static_cast<unsigned>(flags[0]);
+  __syncthreads();
+  const bool wrap = now >= 0x7fffffffu;
+  if (wrap) {
+    for (long long i = 1 + threadIdx.x; i < words; i += blockDim.x) flags[i] = 0;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) flags[0] = wrap ? 1u : now + 1u;
+}
+
 // Every level of the reduction, one launch a level until a launch takes the
 // rest with it. Returns a cudaError_t.
 template <int V>
 int launch_levels(const void* cot, const void* owners, const void* limit, int P, int num_rows,
                   const Shape& sh, size_t smem, int inline_items, void* scratch, void* ticket,
-                  void* flags, int epoch, void* out, void* stream) {
-  // Blocks that the card holds at once, kept per shared-memory size (the
-  // cards of one host are taken to be alike).
+                  void* flags, long long flag_words, void* out, void* stream) {
+  // Blocks that the card holds at once, asked once per shared-memory size
+  // (the cards of one host are taken to be alike). A call's first launch at
+  // a size asks; a CUDA graph is captured after a call at its sizes, so
+  // these queries never run first inside a capture.
   static int sms = 0;
-  static size_t known_smem = 0;
-  static int resident = 0;
+  static size_t seen_smem[16];
+  static int seen_resident[16];
+  static int n_seen = 0;
   cudaError_t err = cudaSuccess;
   if (!sms) {
     int dev = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  if (known_smem != smem) {
+  int resident = 0;
+  for (int i = 0; i < n_seen; ++i) {
+    if (seen_smem[i] == smem) resident = seen_resident[i];
+  }
+  if (!resident) {
     static size_t allowed = 48 * 1024;  // what a kernel gets without asking
     if (smem > allowed) {
       err = cudaFuncSetAttribute(segsum_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -559,10 +591,18 @@ int launch_levels(const void* cot, const void* owners, const void* limit, int P,
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, segsum_kernel<V>, THREADS,
                                                         smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    known_smem = smem;
+    if (n_seen < 16) {
+      seen_smem[n_seen] = smem;
+      seen_resident[n_seen++] = resident;
+    }
   }
   if (resident < 1 || sms < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long cap = static_cast<long long>(sms) * resident;
+
+  bump_epoch<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<Tag*>(flags),
+                                                                  flag_words);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
 
   for (int level = 0;; ++level) {
     const Level lv = level_plan(P, sh.D, sh.rows, level);
@@ -581,7 +621,7 @@ int launch_levels(const void* cot, const void* owners, const void* limit, int P,
         static_cast<const float*>(cot), static_cast<const int32_t*>(owners),
         static_cast<const int32_t*>(limit), P, level, inline_rest, num_rows, sh,
         static_cast<float*>(scratch), static_cast<int32_t*>(ticket),
-        static_cast<Tag*>(flags), epoch, static_cast<float*>(out));
+        static_cast<Tag*>(flags), static_cast<float*>(out));
     err = cudaGetLastError();
     if (err != cudaSuccess || last || inline_rest) return static_cast<int>(err);
   }
@@ -600,14 +640,16 @@ const char* sgt_error_string(int err) {
 // or 4) and `ovec` (owners per copy: 1 or 4) come from the wrapper, which
 // also allocates `scratch`, the carries of every level (scratch_floats
 // floats, 16-byte aligned), and keeps `ticket`, one int32 that is 0 between
-// calls, and `flags`, 1 + 2 x tiles x panels 64-bit words whose upper halves
-// hold no value of `epoch` (zeros at first; the epoch goes up by one a call). Launches one kernel a level; a level of `inline_items` tiles or
-// fewer (counted from P) runs inside the launch before it. Returns a
-// cudaError_t.
+// calls, and `flags`, flag_words >= 2 + 2 x tiles x panels 64-bit words
+// (zeros at first): the epoch, then the tags. Launches the epoch's bump,
+// then one kernel a level; a level of `inline_items` tiles or fewer
+// (counted from P) runs inside the launch before it. Nothing of a call is
+// decided on the host from an earlier call, so a CUDA graph may capture it.
+// Returns a cudaError_t.
 int sgt_segsum(const void* cot, const void* owners, const void* limit, int P, int D,
                int num_rows, int cw, int rows, int slices, int vec, int ovec,
                int inline_items, void* scratch, long long scratch_floats, void* ticket,
-               void* flags, int epoch, void* out, void* stream) {
+               void* flags, long long flag_words, void* out, void* stream) {
   if (num_rows <= 0 || D <= 0) return static_cast<int>(cudaSuccess);
   const int v = cw % 4 ? 1 : 4;  // columns a walking thread carries
   if (P < 0 || cw <= 0 || cw > D || slices <= 0 || slices > 64 || slices * (cw / v) > THREADS || rows <= 0 ||
@@ -631,11 +673,13 @@ int sgt_segsum(const void* cot, const void* owners, const void* limit, int P, in
   if (level_plan(P, D, rows, INT32_MAX).end > scratch_floats) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long items = level_plan(P, D, rows, 0).tiles * sh.panels;
+  if (flag_words < 2 + 2 * items) return static_cast<int>(cudaErrorInvalidValue);
 
   return v == 4 ? launch_levels<4>(cot, owners, limit, P, num_rows, sh, smem, inline_items,
-                                   scratch, ticket, flags, epoch, out, stream)
+                                   scratch, ticket, flags, flag_words, out, stream)
                 : launch_levels<1>(cot, owners, limit, P, num_rows, sh, smem, inline_items,
-                                   scratch, ticket, flags, epoch, out, stream);
+                                   scratch, ticket, flags, flag_words, out, stream);
 }
 
 }  // extern "C"

@@ -9,7 +9,10 @@ carries a hash of its source and flags, so an edited source rebuilds.
 
 Every wrapper that launches a kernel adds one to its `LaunchCounter` for
 each launch, and does so nowhere else, so a run can show that its main
-path went through the kernel.
+path went through the kernel. A wrapper counts when it enqueues; a CUDA
+graph's replays enqueue nothing on the host, so the graph runner
+(utils/graphs.py) takes back what its capture counted and adds that much
+on every replay.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "_build"
@@ -39,24 +42,46 @@ SOURCES = ("expand", "composite_fwd", "composite_bwd", "segsum", "segsum_probe")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+COUNTERS: List["LaunchCounter"] = []
 BUILD_LOG: Dict[str, str] = {}  # name -> nvcc's output (ptxas resource use)
 
 
 class LaunchCounter:
     """A thread-safe count of kernel launches, in total and by an optional
-    key (the forward composite counts by channel width)."""
+    key (the forward composite counts by channel width). Every counter made
+    is listed in COUNTERS."""
 
     def __init__(self, name: str):
         self.name = name
         self._n = 0
         self._by_key: Dict[object, int] = {}
         self._lock = threading.Lock()
+        COUNTERS.append(self)
 
     def add(self, n: int = 1, key=None) -> None:
         with self._lock:
             self._n += n
             if key is not None:
                 self._by_key[key] = self._by_key.get(key, 0) + n
+
+    def snapshot(self) -> Tuple[int, Dict[object, int]]:
+        """(total, by key) as they stand."""
+        with self._lock:
+            return self._n, dict(self._by_key)
+
+    def since(self, before: Tuple[int, Dict[object, int]]) -> Tuple[int, Dict[object, int]]:
+        """What the counts gained since `before` (a snapshot)."""
+        n, keys = self.snapshot()
+        return n - before[0], {k: v - before[1].get(k, 0) for k, v in keys.items()}
+
+    def add_gain(self, gain: Tuple[int, Dict[object, int]], times: int = 1) -> None:
+        """Add `times` x a gain (times = -1 takes it back)."""
+        with self._lock:
+            self._n += times * gain[0]
+            for k, v in gain[1].items():
+                self._by_key[k] = self._by_key.get(k, 0) + times * v
+                if not self._by_key[k]:
+                    del self._by_key[k]
 
     def reset(self) -> None:
         with self._lock:

@@ -42,7 +42,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "sgt_segsum": (_P, _P, _P) + (_I,) * 9 + (_P, _L, _P, _P, _I, _P, _P),
+    "sgt_segsum": (_P, _P, _P) + (_I,) * 9 + (_P, _L, _P, _P, _L, _P, _P),
 }
 
 THREADS = 256  # of a block of csrc/segsum.cu
@@ -61,26 +61,44 @@ def _pow2_floor(x: int) -> int:
 class _Kept:
     """What the kernel keeps between calls on one device (csrc/segsum.cu):
     the carries' scratch; one int32 that is 0 between calls, the ticket that
-    the blocks of a launch draw to find the one that finishes last; the
-    look-back's tags, two 64-bit words a first-level tile and one for the
-    call, whose upper halves hold epochs of earlier calls (zeros at first);
-    and the epoch, which goes up by one a call. Scratch and flags grow when a call needs more.
-    Calls on one device must therefore not overlap on two streams."""
+    the blocks of a launch draw to find the one that finishes last; and the
+    flags, 64-bit words (zeros at first): the call's epoch, which the kernel
+    raises on the device before each call's first level, then the
+    look-back's tags, one for the call and two a first-level tile, whose
+    upper halves hold epochs of earlier calls. Nothing of it is decided on
+    the host, so a CUDA graph may capture a call and replay it.
+
+    Scratch and flags grow when a call needs more, never while a graph is
+    being captured (the new tensors would come from the graph's private pool
+    and replace these): the sizes are claimed by a call before the capture,
+    and a growth inside one raises. Tensors that a captured graph uses are
+    kept alive when they are grown out. Calls on one device must not
+    overlap on two streams."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.scratch = torch.empty(4, dtype=torch.float32, device=device)
         self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
-        self.flags = torch.zeros(1, dtype=torch.int64, device=device)
-        self.epoch = 0
+        self.flags = torch.zeros(2, dtype=torch.int64, device=device)
+        self.in_graph = False  # whether a captured graph uses scratch and flags
+        self.retired: list = []  # grown-out tensors that a captured graph uses
 
     def claim(self, scratch_floats: int, tiles: int) -> "_Kept":
-        if self.scratch.numel() < scratch_floats:
+        grow_scratch = self.scratch.numel() < scratch_floats
+        grow_flags = self.flags.numel() < 2 + 2 * tiles
+        capturing = torch.cuda.is_current_stream_capturing()
+        if (grow_scratch or grow_flags) and capturing:
+            raise RuntimeError(
+                "segsum_contiguous: its scratch would grow inside a CUDA graph capture; "
+                "call it once at the captured shapes before capturing")
+        if (grow_scratch or grow_flags) and self.in_graph:
+            self.retired.append((self.scratch, self.flags))
+            self.in_graph = False
+        if grow_scratch:
             self.scratch = torch.empty(scratch_floats, dtype=torch.float32, device=self.device)
-        if self.flags.numel() < 1 + 2 * tiles or self.epoch >= 2**31 - 1:
-            self.flags = torch.zeros(1 + 2 * tiles, dtype=torch.int64, device=self.device)
-            self.epoch = 0
-        self.epoch += 1
+        if grow_flags:
+            self.flags = torch.zeros(2 + 2 * tiles, dtype=torch.int64, device=self.device)
+        self.in_graph |= capturing
         return self
 
 
@@ -175,7 +193,7 @@ def _segsum_cuda(cot, owners, num_rows, limit):
             cot.data_ptr(), owners.data_ptr(), None if limit is None else limit.data_ptr(),
             p, d, num_rows, cw, rows, slices, vec, ovec, INLINE_ITEMS,
             kept.scratch.data_ptr(), n_scratch, kept.ticket.data_ptr(), kept.flags.data_ptr(),
-            kept.epoch, out.data_ptr(), kernels.current_stream(dev),
+            kept.flags.numel(), out.data_ptr(), kernels.current_stream(dev),
         )
     kernels.check(lib, err, "sgt_segsum")
     LAUNCHES.add()

@@ -7,7 +7,9 @@ paths per view:
   pred_on_3d=False: render raw features -> normalize -> dot text -> argmax
 The text matrix has 'other' prepended at row 0; predicted train-ids are the
 argmax index - 1, with 'other' mapping to the confusion matrix's unlabeled
-column. The confusion is summed on the device that holds the Gaussians.
+column. The confusion is summed on the device that holds the Gaussians;
+`eval_views` takes full chunks of views in one dispatch each (`_eval_chunk`,
+on CUDA one CUDA-graph replay, as the JAX package's lax.scan chunk).
 `voxelize_for_net` makes the sparse UNet's input (modes 3d and 2d_and_3d,
 and the distill trainer's eval render).
 """
@@ -22,6 +24,7 @@ import torch
 from ..core.gaussians import GaussianParams
 from ..renderer import render_chn
 from ..utils.camera import Camera
+from ..utils.graphs import GraphRunner
 from ..utils.metrics import confusion_matrix, confusion_matrix_device, evaluate_confusion
 
 
@@ -55,7 +58,8 @@ def predict_label_image(
     with torch.no_grad():
         if pred_on_3d:
             cls = torch.argmax(_normalize(gauss_feats) @ text.T, dim=-1)  # 0 = other
-            onehot = torch.nn.functional.one_hot(cls, kp1).to(torch.float32) * alive[:, None]
+            classes = torch.arange(kp1, device=cls.device)
+            onehot = (cls[:, None] == classes).to(torch.float32) * alive[:, None]
             pix = torch.argmax(render_chn(camera, params, onehot, **kw)["render"], dim=-1)
         else:
             out = render_chn(camera, params, gauss_feats, **kw)
@@ -152,6 +156,56 @@ class EvalAccumulator:
         )
 
 
+def _eval_chunk(
+    runner: GraphRunner,
+    cam_stack: Camera,  # tensors stacked with a leading K
+    gt_stack: torch.Tensor,  # [K, H, W] int32 ids in [0, num_classes]
+    conf: torch.Tensor,  # [num_classes, num_classes + 1] int64, the running sum
+    params: GaussianParams,
+    alive: torch.Tensor,
+    gauss_feats: torch.Tensor,
+    text: torch.Tensor,
+    num_classes: int,
+    pred_on_3d: bool,
+    backend: str,
+    pair_budget: Optional[int] = None,
+) -> torch.Tensor:
+    """K views added to the confusion sum in one dispatch (on CUDA one
+    replay of a graph captured per K and statics; the per-view label
+    images never leave the device). Returns the new sum."""
+    from .train import camera_at, camera_statics, camera_tensors
+
+    k = gt_stack.shape[0]
+
+    def body(carry, inp):
+        total = carry["conf"]
+        for j in range(k):
+            pred = predict_label_image(camera_at(cam_stack, inp, j), params, alive, gauss_feats,
+                                       text, pred_on_3d, backend, pair_budget=pair_budget)
+            total = total + confusion_matrix_device(pred, inp["gt"][j], num_classes)
+        return {"conf": total}, {}
+
+    key = ("eval", k, pred_on_3d, backend, pair_budget, camera_statics(cam_stack))
+    carry, _ = runner.run(key, body, {"conf": conf},
+                          dict(camera_tensors(cam_stack), gt=gt_stack))
+    return carry["conf"]
+
+
+def _stack_eval_views(cameras, gt_label_images, device):
+    """(stacked camera, gt [K, H, W] int32) where all views share their
+    camera statics and label-image shape; None otherwise (the caller then
+    goes view by view)."""
+    from .train import stack_camera_chunk
+
+    gts = [np.asarray(g) for g in gt_label_images]
+    if len({g.shape for g in gts}) != 1:
+        return None
+    cam_stack = stack_camera_chunk([c.to(device) for c in cameras])
+    if cam_stack is None:
+        return None
+    return cam_stack, torch.from_numpy(np.stack(gts).astype(np.int32)).to(device)
+
+
 def eval_views(
     cameras: Sequence[Camera],
     gt_label_images: Sequence[np.ndarray],
@@ -169,20 +223,32 @@ def eval_views(
 ):
     """Evaluate one scene over its views. Returns (mIoU, mAcc, confusion).
     Each view's label image and confusion stay on the device; only the
-    summed [K, K+1] matrix comes back. `chunk_views` is accepted for the
-    JAX package's configs (its chunks amortise XLA dispatches; the result is
-    the per-view loop's)."""
+    summed [K, K+1] matrix comes back. Full chunks of `chunk_views` views go
+    through `_eval_chunk` (one CUDA-graph replay a chunk on the card, the
+    views one by one on the CPU); the remainder, and every view when
+    `chunk_views` <= 1 or the views' camera statics or label shapes differ,
+    go through the per-view loop, as in the JAX package."""
     num_classes = len(class_labels)
     dev = params.device
     text_t = torch.as_tensor(np.asarray(text, np.float32)).to(dev)
     conf = torch.zeros((num_classes, num_classes + 1), dtype=torch.int64, device=dev)
-    for cam, gt in zip(cameras, gt_label_images):
+    todo = list(zip(cameras, gt_label_images))
+    runner = GraphRunner(dev)
+    while chunk_views > 1 and len(todo) >= chunk_views:
+        chunk = todo[:chunk_views]
+        stacked = _stack_eval_views([c for c, _ in chunk], [g for _, g in chunk], dev)
+        if stacked is None:
+            break
+        todo = todo[chunk_views:]
+        conf = _eval_chunk(runner, stacked[0], stacked[1], conf, params, alive, gauss_feats,
+                           text_t, num_classes, pred_on_3d, backend, pair_budget)
+    for cam, gt in todo:
         pred = predict_label_image(
             cam, params, alive, gauss_feats, text_t, pred_on_3d, backend,
             pair_budget=pair_budget,
         )
         gt_t = torch.as_tensor(np.asarray(gt)).to(dev)
-        conf += confusion_matrix_device(pred, gt_t, num_classes)
+        conf = conf + confusion_matrix_device(pred, gt_t, num_classes)
     acc = EvalAccumulator(num_classes, conf.cpu().numpy())
     miou, macc = acc.report(class_labels, stdout=stdout, log_file=log_file)
     return miou, macc, acc.confusion

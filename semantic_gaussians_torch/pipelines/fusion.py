@@ -10,11 +10,17 @@ average and a visited mask are written in the reference's `.pt` layout
 subsets for distillation.
 
 The accumulators live on the device that holds the Gaussians and are
-updated in place; one view's feature map is on the device at a time.
-`chunk_views` is accepted for the JAX package's configs: its chunked scan
-amortises XLA dispatches and gives the per-view loop's result, which is
-what runs here. `make_parallel_fuse_step` fuses one view a rank and sums
-the deltas over the ranks (parallel.collectives).
+updated in place. Views go in chunks of `chunk_views` (`_fuse_chunk`: on
+CUDA one CUDA-graph replay a chunk, the counterpart of the JAX package's
+lax.scan chunk), the last one padded with zero-weight repeats, the chunk
+length capped so that the stacked maps stay under
+_CHUNK_FEAT_BYTES_BUDGET; `chunk_views` <= 1, a single view, or cameras
+whose statics differ (a printed line says so) go view by view, one map on
+the device at a time. A chunk accumulates with `fuse_view_dense`, whose
+shapes do not depend on the data (a graph holds no data-dependent shape);
+the per-view loop with `fuse_view`, which gathers only the visible rows;
+the two give the same bits. `make_parallel_fuse_step` fuses one view a
+rank and sums the deltas over the ranks (parallel.collectives).
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from ..data.fusion_utils import compute_mapping, surface_depth
 from ..parallel.collectives import psum_many
 from ..renderer import render
 from ..utils.camera import Camera, fov2focal
+from ..utils.graphs import GraphRunner
 
 DEPTH_MODES = ("render", "image", "surface", "none")
 
@@ -42,7 +49,10 @@ class FusionConfig:
     depth_scale: float = 1000.0
     visibility_threshold: float = 0.05
     cut_boundary: int = 10
-    chunk_views: int = 4  # accepted; the per-view loop gives the same result
+    # Views fused per dispatch (on CUDA one CUDA-graph replay); the last
+    # chunk is padded with zero-weight repeats. 0 / 1: per view. Capped so
+    # that the stacked maps stay under _CHUNK_FEAT_BYTES_BUDGET.
+    chunk_views: int = 4
     # Host -> device dtype of the per-view feature maps. float16 halves the
     # dominant transfer and matches the precision 2D features are stored
     # in; accumulation stays float32 either way.
@@ -92,6 +102,38 @@ def fuse_view(
     return sem_sum, counts
 
 
+def fuse_view_dense(
+    sem_sum: torch.Tensor,  # [cap, C] float32, updated in place
+    counts: torch.Tensor,  # [cap] float32, updated in place
+    means: torch.Tensor,
+    alive: torch.Tensor,
+    world_view: torch.Tensor,
+    intrinsic: torch.Tensor,
+    feat_map: torch.Tensor,
+    depth_map: Optional[torch.Tensor],
+    img_dim: tuple,
+    vis_thres: float,
+    cut_bound: int,
+    weight: Optional[torch.Tensor] = None,  # [] 0/1; 0 adds nothing
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`fuse_view` in shapes that do not depend on the data, as the JAX
+    package's fuse_view: every one of the `cap` rows gathers its pixel and
+    adds it where the mask holds, exact zeros elsewhere. The sums start at
+    +0 and never reach -0, so x + 0.0 is x; rows are distinct, so
+    `fuse_view`'s scatter has one writer an element: the two give the same
+    bits. Returns the two accumulators it was given."""
+    mapping = compute_mapping(
+        world_view, means, intrinsic, img_dim, depth_map, vis_thres, cut_bound
+    )
+    mask = (mapping[:, 2] > 0) & alive
+    if weight is not None:
+        mask &= weight > 0
+    feats = feat_map[mapping[:, 0].long(), mapping[:, 1].long()].to(sem_sum.dtype)
+    sem_sum.add_(torch.where(mask[:, None], feats, 0.0))
+    counts.add_(mask.to(counts.dtype))
+    return sem_sum, counts
+
+
 def upload_map(feat: np.ndarray, dev: torch.device, staging: list) -> torch.Tensor:
     """One view's feature map on `dev`. For a CUDA device the copy goes
     through one pinned host buffer kept in `staging` (a list the caller
@@ -105,6 +147,18 @@ def upload_map(feat: np.ndarray, dev: torch.device, staging: list) -> torch.Tens
     on_dev = staging[0].to(dev, non_blocking=True)
     torch.cuda.current_stream(dev).synchronize()  # the buffer is reused
     return on_dev
+
+
+def load_depth_image(depth_path: str, cfg: FusionConfig) -> np.ndarray:
+    """A depth image in metres [H, W] float32, resized (nearest) to the
+    feature maps' size."""
+    from PIL import Image
+
+    w, h = cfg.img_dim
+    d = np.asarray(Image.open(depth_path)).astype(np.float32)
+    if d.shape != (h, w):
+        d = np.asarray(Image.fromarray(d).resize((w, h), Image.NEAREST))
+    return d / np.float32(cfg.depth_scale)
 
 
 def view_depth(
@@ -121,18 +175,12 @@ def view_depth(
     """The [H, W] depth map one view's occlusion test reads, or None:
     rendered ('render'), loaded from a depth image ('image'), made from
     the Gaussian centres ('surface')."""
-    w, h = cfg.img_dim
     if depth_mode == "render":
         kw = {} if tile_shape is None else {"tile_shape": tile_shape}
         return render(camera, params, alive=alive, override_shape=cfg.img_dim,
                       backend=backend, **kw)["depth"]
     if depth_mode == "image":
-        from PIL import Image
-
-        d = np.asarray(Image.open(depth_path)).astype(np.float32)
-        if d.shape != (h, w):
-            d = np.asarray(Image.fromarray(d).resize((w, h), Image.NEAREST))
-        return torch.from_numpy(d / np.float32(cfg.depth_scale)).to(params.device)
+        return torch.from_numpy(load_depth_image(depth_path, cfg)).to(params.device)
     if depth_mode == "surface":
         return surface_depth(camera.world_view, params.means, intrinsic, cfg.img_dim,
                              cfg.cut_boundary, valid=alive)
@@ -187,6 +235,52 @@ def make_parallel_fuse_step(
     return step
 
 
+_CHUNK_FEAT_BYTES_BUDGET = 2_500_000_000  # stacked feature maps of a chunk, at 4 bytes a value
+
+
+def _fuse_chunk(
+    runner: GraphRunner,
+    sem: torch.Tensor,
+    counts: torch.Tensor,
+    params: GaussianParams,
+    alive: torch.Tensor,
+    cam_stack: Camera,  # tensors stacked with a leading K, no images
+    inputs: dict,  # intrinsic [K, 3, 3], feat (K maps [H, W, C]), weight [K], depth [K, H, W]
+    cfg: FusionConfig,
+    depth_mode: str,
+    backend: str,
+    tile_shape,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K views fused in one dispatch (on CUDA one replay of a graph
+    captured per K and statics): each view's depth ('render' or 'surface'
+    made inside, 'image' handed in) and its masked accumulation. Returns
+    the two accumulators."""
+    from .train import camera_at, camera_statics, camera_tensors
+
+    k = inputs["weight"].shape[0]
+
+    def body(carry, inp):
+        sem_sum, cnt = carry["sem"], carry["counts"]
+        for j in range(k):
+            cam = camera_at(cam_stack, inp, j)
+            if depth_mode == "image":
+                depth_map = inp["depth"][j]
+            else:
+                depth_map = view_depth(depth_mode, cam, params, alive, inp["intrinsic"][j], cfg,
+                                       backend=backend, tile_shape=tile_shape)
+            fuse_view_dense(sem_sum, cnt, params.means, alive, cam.world_view,
+                            inp["intrinsic"][j], inp["feat"][j], depth_map, cfg.img_dim,
+                            cfg.visibility_threshold, cfg.cut_boundary, weight=inp["weight"][j])
+        return {"sem": sem_sum, "counts": cnt}, {}
+
+    key = ("fuse", k, depth_mode, backend, None if tile_shape is None else tuple(tile_shape),
+           tuple(cfg.img_dim), cfg.visibility_threshold, cfg.cut_boundary,
+           camera_statics(cam_stack))
+    carry, _ = runner.run(key, body, {"sem": sem, "counts": counts},
+                          dict(camera_tensors(cam_stack), **inputs))
+    return carry["sem"], carry["counts"]
+
+
 def fuse_scene(
     params: GaussianParams,
     alive: torch.Tensor,
@@ -200,36 +294,73 @@ def fuse_scene(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fuse features over every k-th view, on the device that holds
     `params`. Returns (features [cap, C] float32 averaged, visited [cap]
-    bool)."""
+    bool). Views go in chunks of `cfg.chunk_views` (see the module
+    docstring)."""
+    from .train import camera_statics, stack_camera_chunk
+
     dev = params.device
     cap = params.capacity
-    sem = torch.zeros((cap, feature_provider.embedding_dim), dtype=torch.float32, device=dev)
+    c = feature_provider.embedding_dim
+    sem = torch.zeros((cap, c), dtype=torch.float32, device=dev)
     counts = torch.zeros((cap,), dtype=torch.float32, device=dev)
     depth_mode = cfg.depth if cfg.depth not in (None, "None") else "none"
     if depth_mode not in DEPTH_MODES:
         raise ValueError(f"unknown depth mode {cfg.depth!r}")
     staging: list = []
+
+    def load_feat(vi):
+        path = image_paths[vi] if image_paths is not None else (
+            cameras[vi].image_name or str(vi))
+        feat = np.asarray(feature_provider.extract_image_feature(path, cfg.img_dim),
+                          np.dtype(cfg.feat_dtype))
+        return upload_map(feat, dev, staging)
+
+    views = list(range(len(cameras)))[:: cfg.every_k_views]
+    w, h = cfg.img_dim
+    k = min(cfg.chunk_views, max(1, _CHUNK_FEAT_BYTES_BUDGET // (4 * w * h * c)))
+    homogeneous = len({camera_statics(cameras[vi]) for vi in views}) <= 1
+    if k > 1 and len(views) > 1 and not homogeneous:
+        print(f"fusion: cameras are not homogeneous (width/height/fov/clip differ); falling "
+              f"back to per-view dispatch for {len(views)} views (a chunk needs one captured "
+              "shape)")
     with torch.no_grad():
-        for vi in list(range(len(cameras)))[:: cfg.every_k_views]:
-            cam = cameras[vi].to(dev)
-            path = image_paths[vi] if image_paths is not None else (cam.image_name or str(vi))
-            feat = upload_map(
-                np.asarray(feature_provider.extract_image_feature(path, cfg.img_dim),
-                           np.dtype(cfg.feat_dtype)),
-                dev, staging,
-            )
-            intrinsic = torch.from_numpy(_intrinsic_for(cam, cfg.img_dim)).to(dev)
-            depth_map = view_depth(
-                depth_mode, cam, params, alive, intrinsic, cfg,
-                depth_paths[vi] if depth_mode == "image" else None, backend, tile_shape,
-            )
-            fuse_view(
-                sem, counts, params.means, alive, cam.world_view, intrinsic, feat, depth_map,
-                cfg.img_dim, cfg.visibility_threshold, cfg.cut_boundary,
-            )
-            del feat
+        if k > 1 and len(views) > 1 and homogeneous:
+            runner = GraphRunner(dev)
+            for start in range(0, len(views), k):
+                batch = views[start:start + k]
+                pad = k - len(batch)
+                idxs = batch + [batch[-1]] * pad
+                cam_stack = stack_camera_chunk(
+                    [dataclasses.replace(cameras[vi], image=None).to(dev) for vi in idxs])
+                feats = [load_feat(vi) for vi in batch]
+                inputs = dict(
+                    feat=feats + [feats[-1]] * pad,
+                    intrinsic=torch.from_numpy(np.stack(
+                        [_intrinsic_for(cameras[vi], cfg.img_dim) for vi in idxs])).to(dev),
+                    weight=torch.tensor([1.0] * len(batch) + [0.0] * pad, device=dev),
+                )
+                if depth_mode == "image":
+                    inputs["depth"] = torch.from_numpy(np.stack(
+                        [load_depth_image(depth_paths[vi], cfg) for vi in idxs])).to(dev)
+                sem, counts = _fuse_chunk(runner, sem, counts, params, alive, cam_stack, inputs,
+                                          cfg, depth_mode, backend, tile_shape)
+                del feats, inputs
+        else:
+            for vi in views:
+                cam = cameras[vi].to(dev)
+                feat = load_feat(vi)
+                intrinsic = torch.from_numpy(_intrinsic_for(cam, cfg.img_dim)).to(dev)
+                depth_map = view_depth(
+                    depth_mode, cam, params, alive, intrinsic, cfg,
+                    depth_paths[vi] if depth_mode == "image" else None, backend, tile_shape,
+                )
+                fuse_view(
+                    sem, counts, params.means, alive, cam.world_view, intrinsic, feat,
+                    depth_map, cfg.img_dim, cfg.visibility_threshold, cfg.cut_boundary,
+                )
+                del feat
         visited = counts > 0
-        sem /= torch.clamp(counts, min=1.0)[:, None]
+        sem = sem / torch.clamp(counts, min=1.0)[:, None]
     return sem, visited
 
 

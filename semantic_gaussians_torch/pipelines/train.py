@@ -8,14 +8,17 @@ opacity reset every `opacity_reset_interval`, the adaptive pair budget.
 The state is capacity-padded with an `alive` mask, as in the JAX package.
 
 The gradient runs through the tiled rasterizer's autograd Function (the
-composite backward and segment-sum kernels on the card). Not ported:
-`train_scan_step`, which fuses K steps into one XLA dispatch to amortise
-dispatch cost; eager PyTorch has no such dispatch to amortise.
+composite backward and segment-sum kernels on the card). `train_scan_step`
+runs K dependent steps as one replay of a CUDA graph (utils.graphs), the
+counterpart of the JAX package's `lax.scan` dispatch: eager PyTorch pays
+the host's launch of every small kernel of a step, hundreds of them, and a
+replay launches them at once. `train_loop(steps_per_dispatch=K)` cuts the
+run into such chunks at the JAX package's boundaries.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -32,8 +35,9 @@ from ..core.optimizer import AdamState, TrainHyper, adam_init, adam_update, lr_t
 from ..ops.binning import default_pair_budget
 from ..renderer import render
 from ..utils.camera import Camera
+from ..utils.graphs import GraphRunner
 from ..utils.losses import photometric_loss, psnr
-from ..utils.logging_utils import StepTimer
+from ..utils.logging_utils import StepTimer, TBLogger
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,6 +170,105 @@ def train_step(
     )
 
 
+_CAMERA_TENSORS = ("world_view", "full_proj", "camera_center", "image")
+
+
+def camera_statics(cam: Camera) -> tuple:
+    """The fields a chunk's cameras must share (a graph's static shapes)."""
+    return (cam.width, cam.height, cam.fov_x, cam.fov_y, cam.znear, cam.zfar)
+
+
+def stack_camera_chunk(cams: list) -> Optional[Camera]:
+    """The cameras' tensors stacked with a leading K (world_view [K, 4, 4],
+    full_proj, camera_center [K, 3], image [K, H, W, 3] or None) and their
+    shared statics, for train_scan_step; None where a static field (size,
+    FoVs, clip planes) differs: the caller then takes single steps."""
+    base = cams[0]
+    if any(camera_statics(c) != camera_statics(base) for c in cams):
+        return None
+    return dataclasses.replace(
+        base, image_name="",
+        **{f: None if getattr(base, f) is None else torch.stack([getattr(c, f) for c in cams])
+           for f in _CAMERA_TENSORS})
+
+
+def camera_tensors(stack: Camera) -> Dict[str, torch.Tensor]:
+    """A stacked camera's tensors, by field (the inputs of a graphed chunk)."""
+    return {f: getattr(stack, f) for f in _CAMERA_TENSORS if getattr(stack, f) is not None}
+
+
+def camera_at(stack: Camera, tensors: Dict[str, torch.Tensor], j: int) -> Camera:
+    """View j of a chunk: the statics of `stack`, row j of each tensor."""
+    return dataclasses.replace(
+        stack, **{f: t[j] for f, t in tensors.items() if f in _CAMERA_TENSORS})
+
+
+def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
+    """A TrainState as a flat dict of tensors (a graph's carry)."""
+    out = {f"params.{f}": getattr(state.params, f) for f in FIELDS}
+    out.update({f"mu.{f}": getattr(state.adam.mu, f) for f in FIELDS})
+    out.update({f"nu.{f}": getattr(state.adam.nu, f) for f in FIELDS})
+    out.update({f"dstate.{k}": getattr(state.dstate, k)
+                for k in ("xyz_grad_accum", "denom", "max_radii2d")})
+    out.update(alive=state.alive, count=state.adam.count, step=state.step)
+    return out
+
+
+def state_from_tensors(t: Dict[str, torch.Tensor]) -> TrainState:
+    """The inverse of state_tensors (the tensors themselves, not copies)."""
+
+    def params(prefix):
+        return GaussianParams(**{f: t[f"{prefix}.{f}"] for f in FIELDS})
+
+    return TrainState(
+        params=params("params"), alive=t["alive"],
+        adam=AdamState(count=t["count"], mu=params("mu"), nu=params("nu")),
+        dstate=DensifyState(**{k: t[f"dstate.{k}"] for k in (
+            "xyz_grad_accum", "denom", "max_radii2d")}),
+        step=t["step"],
+    )
+
+
+def train_scan_step(
+    state: TrainState,
+    cam_stack: Camera,  # tensors stacked with a leading K (stack_camera_chunk)
+    bgs: torch.Tensor,  # [K, 3]
+    cfg: TrainConfig,
+    active_sh_degree: int,
+    backend: str = "tiled",
+    pair_budget: Optional[int] = None,
+    runner: Optional[GraphRunner] = None,
+):
+    """K dependent train steps in one dispatch: on a CUDA device one replay
+    of a graph that captured the K steps (`runner` caches the graphs; pass
+    the same runner for every chunk, or each call captures anew), on the
+    CPU the K steps eagerly. Returns (state, metrics stacked [K]).
+
+    On CUDA the returned state's tensors are the runner's static buffers,
+    rewritten by the next replay of the same graph; the state handed in is
+    left as it was. The statics (K, SH degree, budget, backend, config,
+    camera statics and the state's shapes) key the graph, so a chunk that
+    changes any of them is captured anew."""
+    k = bgs.shape[0]
+    inputs = dict(camera_tensors(cam_stack), bgs=bgs)
+
+    def body(carry, inp):
+        st = state_from_tensors(carry)
+        per_step = []
+        for j in range(k):
+            st, m = train_step(st, camera_at(cam_stack, inp, j), inp["bgs"][j], cfg,
+                               active_sh_degree, backend, pair_budget)
+            per_step.append(m)
+        return state_tensors(st), {name: torch.stack([m[name] for m in per_step])
+                                   for name in per_step[0]}
+
+    runner = runner or GraphRunner(state.params.device)
+    key = ("train", k, active_sh_degree, pair_budget, backend, cfg,
+           camera_statics(cam_stack), state.params.capacity)
+    carry, metrics = runner.run(key, body, state_tensors(state), inputs)
+    return state_from_tensors(carry), metrics
+
+
 def densify_step(
     state: TrainState,
     scene_extent: float,
@@ -233,6 +336,17 @@ def tuned_pair_budget(pairs: int) -> int:
     return min(out, (1 << 24) - 8192)
 
 
+def chunk_length(s: int, steps_per_dispatch: int, left: int) -> int:
+    """Steps of the chunk that starts at global iteration `s`: at most
+    `steps_per_dispatch` and `left`, ending at the next multiple of 10 (so
+    that every cadence of the loop, all multiples of 10, falls on a chunk's
+    end) and before the next multiple of 1000 (so that no chunk crosses a
+    change of the SH degree): the JAX package's rule."""
+    n = min(steps_per_dispatch, left)
+    n = min(n, 10 * (-(-s // 10)) - s + 1)
+    return min(n, 1000 * (s // 1000) + 1000 - s)
+
+
 def train_loop(
     state: TrainState,
     cameras: list,
@@ -245,20 +359,35 @@ def train_loop(
     pair_budget: Optional[int] = None,
     iter_offset: int = 0,
     shuffle_seed: int = 0,
+    steps_per_dispatch: int = 1,
+    tb_dir: Optional[str] = None,
 ):
     """Single-device driver, the JAX package's train_loop step for step:
     cameras in the order `np.random.default_rng(shuffle_seed)` permutes
     them, SH warm-up, densify / reset cadence, and the adaptive pair budget
     (doubles on overflow, re-tunes every 50 iterations from the pair count;
-    its decisions read the metrics of the previous check, 10 steps stale,
-    so reading them never waits on the step in flight). An explicit
-    `pair_budget` disables the adaptation.
+    its decisions read the largest overflow and pair count over the steps
+    of the previous check, 10 steps stale). An explicit `pair_budget`
+    disables the adaptation.
+
+    Steps go in chunks of up to `steps_per_dispatch` (chunk_length), each
+    one train_scan_step: on a CUDA device one CUDA-graph replay, captured
+    once per set of statics (a new budget, SH degree or capacity captures
+    anew; graphs whose SH degree or capacity cannot recur are dropped). A
+    chunk's backgrounds are drawn at once. Densify, opacity reset and the
+    capacity growth run eagerly between chunks. A chunk of one step, or of
+    cameras whose statics differ, runs train_step step by step. `tb_dir`
+    logs the JAX package's TensorBoard scalars every 10 iterations and the
+    opacity histogram every 1000 (utils.logging_utils.TBLogger; nothing
+    without tensorboard).
 
     Returns (state, log): log["loss"] / ["psnr"] / ["overflow"] /
     ["num_pairs"] are device tensors with one entry per step, log["budget"]
-    the pair budget of each step, log["densify"] a list of (iteration,
-    alive count after, dropped) per densify, and log["history"] the
-    (iteration, metrics as floats) printed every `log_every` steps."""
+    the pair budget of each step, log["cameras"] the image name of each
+    step's camera, log["chunks"] the (first iteration, steps) of each chunk, log["densify"] a list of (iteration, alive count
+    after, dropped) per densify, log["history"] the (iteration, metrics as
+    floats) printed every `log_every` steps, and log["graphs"] the runner's
+    captures and replays."""
     iters = num_iters or cfg.iterations
     dev = state.params.device
     bg = torch.ones(3, device=dev) if cfg.white_background else torch.zeros(3, device=dev)
@@ -269,37 +398,71 @@ def train_loop(
         pair_budget = default_pair_budget(state.params.capacity)
     pending_check = None
     timer = StepTimer()
+    tb = TBLogger(tb_dir) if tb_dir else None
+    runner = GraphRunner(dev)
     keys = ("loss", "psnr", "overflow", "num_pairs")
     log = {k: torch.zeros(iters, dtype=torch.float32, device=dev) for k in keys}
-    log.update(budget=[], densify=[], history=[])
+    log.update(budget=[], cameras=[], chunks=[], densify=[], history=[])
 
-    for rel in range(iters):
-        it = iter_offset + rel + 1
-        sh_deg = min(cfg.max_sh_degree, it // 1000)
+    def pick_cam():
+        nonlocal order
         if not order:
             order = list(rng.permutation(len(cameras)))
-        cam = cameras[order.pop()]
-        step_bg = torch.rand(3, generator=generator, device=dev) if cfg.random_background else bg
+        return cameras[order.pop()]
+
+    rel = 0
+    while rel < iters:
+        s = iter_offset + rel + 1  # the chunk's first global iteration
+        n = chunk_length(s, steps_per_dispatch, iters - rel)
+        sh_deg = min(cfg.max_sh_degree, s // 1000)
+        cams = [pick_cam() for _ in range(n)]
+        if cfg.random_background:
+            bgs = torch.rand((n, 3), generator=generator, device=dev)
+        else:
+            bgs = bg.expand(n, 3)
+        stack = stack_camera_chunk(cams) if n > 1 else None
         with timer:
-            state, m = train_step(state, cam, step_bg, cfg, sh_deg, backend=backend,
-                                  pair_budget=pair_budget)
-        log["budget"].append(pair_budget)
+            if stack is not None:
+                state, per = train_scan_step(state, stack, bgs, cfg, sh_deg, backend,
+                                             pair_budget, runner)
+            else:
+                steps = []
+                for j, cam in enumerate(cams):
+                    state, m = train_step(state, cam, bgs[j], cfg, sh_deg, backend=backend,
+                                          pair_budget=pair_budget)
+                    steps.append(m)
+                per = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        step_time = timer.value / n
+        it = s + n - 1  # the chunk's last global iteration
+        log["budget"] += [pair_budget] * n
+        log["cameras"] += [c.image_name for c in cams]
+        log["chunks"].append((s, n))
         for k in keys:
-            log[k][rel] = m[k]
+            log[k][rel:rel + n] = per[k]
         if adaptive and it % 10 == 0:
             skip_record = False
             if pending_check is not None:
                 ov, pairs, chk_it = pending_check
                 if int(ov) > 0:
                     pair_budget *= 2
-                    # this step ran under the old budget: wait for one that
+                    # this chunk ran under the old budget: wait for one that
                     # ran under the new one before judging again
                     skip_record = True
                 elif chk_it % 50 == 0:
                     want = tuned_pair_budget(int(pairs))
                     if want > pair_budget or want < pair_budget * 2 // 3:
                         pair_budget = want
-            pending_check = None if skip_record else (m["overflow"], m["num_pairs"], it)
+            pending_check = None if skip_record else (
+                per["overflow"].max(), per["num_pairs"].max(), it)
+        if tb is not None and tb.active and it % 10 == 0:
+            tb.scalar("train/loss", per["loss"][-1], it)
+            tb.scalar("train/psnr", per["psnr"][-1], it)
+            tb.scalar("train/total_points", per["num_points"][-1], it)
+            tb.scalar("train/iter_time", step_time, it)
+            tb.scalar("train/pair_overflow", per["overflow"].max(), it)
+            if it % 1000 == 0:
+                tb.histogram("scene/opacity_histogram",
+                             state.params.opacity[state.alive].cpu().numpy(), it)
         if it < cfg.densify_until_iter:
             if it > cfg.densify_from_iter and it % cfg.densification_interval == 0:
                 state, dropped = densify_step(
@@ -310,13 +473,24 @@ def train_loop(
                 log["densify"].append((it, alive_n, int(dropped)))
                 if alive_n > 0.85 * state.params.capacity:
                     state = grow_capacity(state)
+                    cap = state.params.capacity
+                    runner.drop(lambda key: key[0] == "train" and key[-1] != cap)
             if it % cfg.opacity_reset_interval == 0 or (
                 cfg.white_background and it == cfg.densify_from_iter
             ):
                 state = opacity_reset_step(state)
-        if log_every and it % log_every == 0:
-            mf = {k: float(v) for k, v in m.items()}
-            log["history"].append((it, mf))
-            print(f"iter {it}: loss {mf['loss']:.4f} psnr {mf['psnr']:.2f} "
-                  f"pts {int(mf['num_points'])} step {timer.value * 1e3:.1f} ms (host)")
+        if min(cfg.max_sh_degree, (it + 1) // 1000) > sh_deg:
+            runner.drop(lambda key: key[0] == "train" and key[2] <= sh_deg)
+        if log_every:
+            for j in range(n):
+                itj = s + j
+                if itj % log_every == 0:
+                    mf = {k: float(v[j]) for k, v in per.items()}
+                    log["history"].append((itj, mf))
+                    print(f"iter {itj}: loss {mf['loss']:.4f} psnr {mf['psnr']:.2f} "
+                          f"pts {int(mf['num_points'])} step {step_time * 1e3:.1f} ms (host)")
+        rel += n
+    if tb is not None:
+        tb.close()
+    log["graphs"] = dict(captures=runner.captures, replays=runner.replays)
     return state, log

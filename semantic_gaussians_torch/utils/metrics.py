@@ -31,9 +31,12 @@ def confusion_matrix_device(
 ) -> torch.Tensor:
     """`confusion_matrix` on tensors, on their device (int64 counts): the
     evaluation sums these per view, so only a [num_classes, num_classes+1]
-    matrix leaves the device instead of a label image per view."""
+    matrix leaves the device instead of a label image per view. The counts
+    are an integer scatter-add into a fixed [(K+1)^2] (bincount reads the
+    largest id back to the host, which a CUDA graph cannot hold)."""
     idxs = gt_ids.reshape(-1).long() * (num_classes + 1) + pred_ids.reshape(-1).long()
-    counts = torch.bincount(idxs, minlength=(num_classes + 1) ** 2)
+    counts = torch.zeros((num_classes + 1) ** 2, dtype=torch.int64, device=idxs.device)
+    counts.index_add_(0, idxs, torch.ones_like(idxs))
     return counts.reshape(num_classes + 1, num_classes + 1)[:num_classes, :]
 
 

@@ -35,9 +35,11 @@ def expon_lr_schedule(
         # lr_final == 0 would give log(0) * t = -inf * 0 = NaN at t == 0;
         # decay toward a tiny positive floor instead.
         lr_final_safe = max(lr_final, 1e-30)
-        log_init = torch.log(torch.tensor(lr_init, dtype=torch.float32, device=step.device))
+        # fills on the step's device, not copies from the host, so that a
+        # CUDA graph can capture the schedule
+        log_init = torch.log(torch.full((), lr_init, dtype=torch.float32, device=step.device))
         log_final = torch.log(
-            torch.tensor(lr_final_safe, dtype=torch.float32, device=step.device)
+            torch.full((), lr_final_safe, dtype=torch.float32, device=step.device)
         )
         lr = delay_rate * torch.exp(log_init * (1 - t) + log_final * t)
         # 0 when step < 0 or lr_init == 0 (disabled groups).

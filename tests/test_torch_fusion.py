@@ -165,7 +165,7 @@ def test_fuse_scene_matches_jax(depth_mode, tmp_path):
 
 def test_fuse_scene_chunked_jax_gives_the_same(tmp_path):
     """The JAX package's chunked scan (chunk_views=2) against the port's
-    per-view loop, which is what `chunk_views` means in the port."""
+    chunk of 4 (the 3 views and one zero-weight slot)."""
     (jf, jv), (tf, tv), _ = _fuse_both("surface", tmp_path, chunk_views=2)
     np.testing.assert_array_equal(tv, jv)
     np.testing.assert_allclose(tf, jf, rtol=1e-6, atol=1e-7)

@@ -2,8 +2,8 @@
 the JAX ViewerState (view_server.py, render.backend: pallas) on one small
 scene with 16-dim fused features: all four modes (uint8 images within 1,
 Semantic class maps equal), edit and reset, one HTTP round trip through
-the port's server with the PNG decoded by zlib, and the replay of a dynamic
-scene by timestep and by wall clock."""
+the port's server with the PNG decoded by zlib, the interactive page at
+GET /, and the replay of a dynamic scene by timestep and by wall clock."""
 import json
 import pathlib
 import struct
@@ -138,6 +138,33 @@ def test_http_round_trip(states):
             pytest.fail("an unknown mode must not render")
     except urllib.error.HTTPError as e:
         assert e.code == 500 and "unknown mode" in json.loads(e.read())["error"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=30)
+    assert not t.is_alive()
+
+
+def test_page_at_root_matches_root_server(states):
+    """GET / serves the root view_server.py's interactive page byte for
+    byte, as HTML; an unknown path is a 404."""
+    from http.server import ThreadingHTTPServer
+
+    import view_server as jax_vs
+
+    _, tstate = states
+    assert torch_vs._PAGE == jax_vs._PAGE
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), torch_vs.make_handler(tstate))
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(f"{base}/", timeout=60) as r:
+            assert r.status == 200 and r.headers["Content-Type"] == "text/html"
+            assert r.read() == jax_vs._PAGE.encode()
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(f"{base}/nowhere", timeout=60)
+        assert err.value.code == 404
     finally:
         httpd.shutdown()
         httpd.server_close()
