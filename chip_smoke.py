@@ -154,6 +154,26 @@ plain PyTorch version:
      launches of (a), (b) and (b') make the kernels line's "distributed"
      path. A child that fails, exits non-zero or hangs past DIST_TIMEOUT_S
      fails the run.
+ 16. (run after phase 1) the end-to-end harnesses at full width and cut
+     depth, each a main path of its own (its launches counted from 0):
+     (a) `tools.profile_step` on bench.py's scene (100k, 640x480): the top
+     ops a step by device time, then the same table for the port's
+     train_step (SSIM and Adam in it) on the timed training view (a
+     training scene written as phase 7's, not trained); (b)
+     `tools.parity_harness` on its full scene (365,664 true Gaussians, GT
+     at 960x704, 40 + 8 views at 480x352, pair budget 1,572,864), cut to
+     PARITY_ITERS iterations: the reading at 550 at least 3 dB over the one
+     at 50 and >= 27 dB, alive above the init after the densify at 600, no
+     overflow; (c) `tools.semantic_harness` on its full scene (205,236
+     Gaussians, D = 512, 640x480, MinkUNet34A, budget 65,536), cut to
+     SEMANTIC_CUT: fused cosine > 0.95, visited > 0.7, mIoU 2d > 0.9, 3d
+     and 2d_and_3d finite with every labelled pixel counted. Before each
+     path's counted run, the kernels are held against their plain versions
+     on that path's own inputs (phase 2's tolerances): (a) bench.py's view,
+     expand, composite forward and backward, segment sum; (b) the first GT
+     view at 960x704 on the true scene (budget 8,388,608: expand, forward)
+     and a training view at 480x352 from the init (all four); (c) the
+     first eval view at C = 512 (the walk and contraction pair) and C = 4.
 Every number is stamped with the card's name and power limit.
 
 Prints one JSON line of per-kernel numbers, the card's name and power limit,
@@ -400,6 +420,12 @@ def main():
         regs = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
         print(f"  {name}: {regs}")
 
+    # ---------------------------------------------------------------- 16
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as scene_tmp:
+        write_blender_scene(Path(scene_tmp) / "scene", make_scene(np, N_GAUSSIANS, False)[0],
+                            dev)
+        harnesses = harness_phase(Path(scene_tmp) / "scene", dev, card)
+
     # ---------------------------------------------------------------- scene
     arrays, feats_np = make_scene(np, N_GAUSSIANS)
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
@@ -456,21 +482,8 @@ def main():
         bg = torch.linspace(0.1, 0.3, c, device=dev)
         args = (geom, colors, binning.pair_gaussian, binning.tile_start, binning.tile_count,
                 bg, grid[1], th, tw)
-        got = composite.composite_forward(*args)
         work = {}
-        want = composite.composite_forward_plain(*args, work=work)
-        torch.cuda.synchronize()
-        if not torch.equal(got[3], want[3]):
-            fail(f"composite C={c}: n_contrib differs at {int((got[3] != want[3]).sum())} px")
-        err = 0.0
-        for a, b, name in zip(got[:3], want[:3], ("color", "depth", "final_T")):
-            if not torch.isfinite(a).all():
-                fail(f"composite C={c}: non-finite {name}")
-            try:
-                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
-            except AssertionError as e:
-                fail(f"composite C={c} {name} vs plain: {e}")
-            err = max(err, float((a - b).abs().max()))
+        _, err = check_forward(f"composite C={c}", args, work)
         comp_cases[c] = dict(args=args, max_abs_err=err, work=work)
         print(f"composite C={c}: n_contrib exact, max |kernel - plain| = {err:.3g}; "
               f"(pixel, pair) events evaluated {work['evaluated']}, "
@@ -615,15 +628,18 @@ def main():
     # requests (phase 3), the train CLI (7), the fusion CLI (9), the distill
     # CLI (9b), the eval CLI's six runs (10), the two probe tools (11) and
     # the distributed schedules' calls in this process and in the two-rank
-    # children (15). `launches` is their sum.
+    # children (15), and the three harness paths (16). `launches` is their sum.
     for e in kernel_lines:
         if e["name"] == "composite_fwd":
             e["training_view"] = step_times["composite"]["composite_fwd"]
     paths = {"viewer": viewer_launches, "train": trained["launches"],
              "fusion": fused["launches"], "distill": distilled["launches"],
              "eval": evaluated["launches"], **models_2d["launches"],
-             "tools": tools["launches"], "distributed": distributed["launches"]}
+             "tools": tools["launches"], "distributed": distributed["launches"],
+             **harnesses["launches"]}
     for e in kernel_lines:
+        if e["name"] in harnesses["errors"]:
+            e["max_abs_err_by_path"] = harnesses["errors"][e["name"]]
         by_path = {name: counts[e["name"]] for name, counts in paths.items()}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
@@ -665,6 +681,13 @@ def padded_params(arrays, dev):
     return params_from_numpy(padded, dev), torch.arange(cap, device=dev) < n
 
 
+def expand_args(ex, budget, grid, n, th, tw):
+    """expand_pairs' arguments from depth_sorted_rects' ExpandInputs `ex`
+    (binning's own call)."""
+    return (ex.offsets, ex.rect_packed_d, ex.idx_d, ex.cull_d, ex.num_pairs, ex.num_dense,
+            budget, grid[1], grid[0] * grid[1], n, tw, th)
+
+
 def expand_shape(params, alive, cam):
     """One view's expand inputs, as bin_gaussians builds them, at the
     default pair budget of the params' capacity: {cull: {"ex":
@@ -695,9 +718,7 @@ def expand_shape(params, alive, cam):
         ex = depth_sorted_rects(proj.means2d, proj.depths, proj.radii_xy, (th, tw), grid,
                                 budget, ellipse)
         out[cull] = dict(
-            ex=ex,
-            args=(ex.offsets, ex.rect_packed_d, ex.idx_d, ex.cull_d, ex.num_pairs,
-                  ex.num_dense, budget, grid[1], grid[0] * grid[1], n, tw, th),
+            ex=ex, args=expand_args(ex, budget, grid, n, th, tw),
             binning=lambda e=ellipse: bin_gaussians(
                 proj.means2d, proj.depths, proj.radii_xy, (th, tw), grid, budget, e))
     return out
@@ -1768,6 +1789,33 @@ def check_adversarial_cases(dev):
     print(f"adversarial cases: {n} kernel-vs-plain checks passed")
 
 
+def check_forward(name, args, work=None):
+    """composite_forward on `args` against its plain version (which fills
+    `work` when given): n_contrib exact; colour, depth and final_T finite
+    and within rtol 1e-5 / atol 1e-6. Returns (the kernel's outputs, the
+    largest |kernel - plain|)."""
+    import torch
+
+    from semantic_gaussians_torch.ops import composite
+
+    got = composite.composite_forward(*args)
+    want = composite.composite_forward_plain(*args, work=work)
+    torch.cuda.synchronize()
+    if not torch.equal(got[3], want[3]):
+        fail(f"{name}: n_contrib differs at {int((got[3] != want[3]).sum())} px")
+    err = 0.0
+    for a, b, what in zip(got[:3], want[:3], ("color", "depth", "final_T")):
+        if not torch.isfinite(a).all():
+            fail(f"{name}: non-finite {what}")
+        try:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        except AssertionError as e:
+            fail(f"{name} {what} vs plain: {e}")
+        if a.numel():
+            err = max(err, float((a - b).abs().max()))
+    return got, err
+
+
 def check_composite(name, args, g_color):
     """Both composite kernels on `args` and the upstream gradient `g_color`
     against their plain versions: forward n_contrib exact, colour, depth and
@@ -1780,27 +1828,17 @@ def check_composite(name, args, g_color):
     from semantic_gaussians_torch.ops import composite
 
     fwd_work, bwd_work = {}, {}
-    got = composite.composite_forward(*args)
-    want = composite.composite_forward_plain(*args, work=fwd_work)
+    got, fwd_err = check_forward(name, args, fwd_work)
     bargs = args[:6] + (g_color, got[2], got[3]) + args[6:]
     rows, again = composite.composite_backward(*bargs), composite.composite_backward(*bargs)
     rows_plain = composite.composite_backward_plain(*bargs, work=bwd_work)
     torch.cuda.synchronize()
-    if not torch.equal(got[3], want[3]):
-        fail(f"{name}: n_contrib differs at {int((got[3] != want[3]).sum())} px")
-    for a, b, out in zip(got[:3], want[:3], ("color", "depth", "final_T")):
-        try:
-            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
-        except AssertionError as e:
-            fail(f"{name} {out} vs plain: {e}")
     in_pairs = int(args[4].sum())
     if not torch.equal(rows[:in_pairs], again[:in_pairs]):
         fail(f"{name}: two backward runs differ")
     why = in_pairs and close_enough(rows[:in_pairs], rows_plain[:in_pairs], 1e-4, 1e-5)
     if why:
         fail(f"{name} backward vs plain: {why}")
-    fwd_err = max(float((a - b).abs().max()) if a.numel() else 0.0
-                  for a, b in zip(got[:3], want[:3]))
     bwd_err = float((rows[:in_pairs] - rows_plain[:in_pairs]).abs().max()) if in_pairs else 0.0
     return bargs, fwd_err, bwd_err, fwd_work, bwd_work
 
@@ -3658,6 +3696,267 @@ def distributed_phase(tmpdir, scene, fused, dev, card):
           f"ranks (gloo) {wall_two:.1f} s, train CLI on two ranks {wall_cli:.1f} s; launches "
           f"{launches}")
     return dict(launches=launches, wall_s=wall)
+
+
+# ------------------------------------------------------------------ phase 16
+PARITY_ITERS = 600  # the first PSNR readings (50, 550) and the first densify (600)
+# The semantic harness's depth cut: 6 of 30 fused views, 2 of 8 evaluated,
+# 6 of 300 distill steps (the 4th traced for the busy share).
+SEMANTIC_CUT = dict(n_fuse=6, n_eval=2, epochs=6)
+
+
+def check_path_kernels(label, params, alive, cam, budget, features, backward=False,
+                       sh_degree=None):
+    """Kernels 1-5 against their plain versions on one phase-16 path's
+    inputs, built as the renderer builds them (project_gaussians, binning
+    with the tight cull, pack_geometry; 16x32 tiles) at the path's pair
+    budget: expand bit for bit; composite_forward for each entry of
+    `features` ({C: [N, C] features, or None for the projected SH colours
+    at `sh_degree`}) at check_forward's tolerances; with `backward`, at C =
+    3, composite_backward on a random upstream gradient and the segment sum
+    of its generation rows (check_composite's and check_segsum's
+    tolerances). Returns {kernel: largest |kernel - plain|}."""
+    import torch
+
+    from semantic_gaussians_torch.ops import composite, expand
+    from semantic_gaussians_torch.ops.binning import bin_gaussians, depth_sorted_rects
+    from semantic_gaussians_torch.ops.projection import project_gaussians
+    from semantic_gaussians_torch.ops.rasterize import generation_rows
+
+    dev = params.device
+    th, tw = 16, 32
+    grid = (-(-cam.height // th), -(-cam.width // tw))
+    n = params.capacity
+    errs = {"expand": 0.0}
+    with torch.no_grad():
+        proj = project_gaussians(
+            params.means, params.scales, params.quats, params.opacity[:, 0], cam.world_view,
+            cam.full_proj, cam.camera_center, cam.width, cam.height, cam.tan_half_fov_x,
+            cam.tan_half_fov_y, sh_coeffs=params.sh_coeffs,
+            sh_degree=params.max_sh_degree if sh_degree is None else sh_degree, alive=alive)
+        ex = depth_sorted_rects(proj.means2d, proj.depths, proj.radii_xy, (th, tw), grid,
+                                budget, proj.cull_ellipse)
+        check_expand(label, expand, expand_args(ex, budget, grid, n, th, tw))
+        binning = bin_gaussians(proj.means2d, proj.depths, proj.radii_xy, (th, tw), grid,
+                                budget, proj.cull_ellipse)
+        if int(binning.overflow):
+            fail(f"{label}: {int(binning.overflow)} pairs past the budget {budget}")
+        geom = composite.pack_geometry(proj.means2d, proj.conics, proj.opacities, proj.depths)
+        for c, feats in features.items():
+            colors = (proj.colors if feats is None else feats).to(torch.float32).contiguous()
+            args = (geom, colors, binning.pair_gaussian, binning.tile_start,
+                    binning.tile_count, torch.zeros(c, device=dev), grid[1], th, tw)
+            if not (backward and c == 3):
+                _, errs[f"composite_fwd C={c}"] = check_forward(f"{label} C={c}", args)
+                continue
+            g_color = torch.randn((binning.tile_start.numel(), 3, th * tw), device=dev,
+                                  generator=torch.Generator(dev).manual_seed(SEED + 16))
+            bargs, errs["composite_fwd C=3"], errs["composite_bwd"], _, _ = check_composite(
+                f"{label} C=3", args, g_color)
+            rows = generation_rows(composite.composite_backward(*bargs), binning)
+            errs["segsum"] = check_segsum(
+                f"{label} D={rows.shape[1]}", (rows, binning.gen_owner, n + 1,
+                                               binning.num_pairs), exact=False)
+    print(f"{label} ({cam.width}x{cam.height}, n={n}, budget {budget}, "
+          f"{int(binning.num_pairs)} pairs): kernels match their plain versions, largest "
+          f"|kernel - plain| {errs}")
+    return errs
+
+
+def profile_step_kernels(dev):
+    """Kernels 1-5 on profile_step's bench view (its defaults: 100,000
+    Gaussians at 640x480, the probe's tuned budget)."""
+    from semantic_gaussians_torch.tools import profile_step
+
+    params, alive, cam, _ = profile_step.bench_scene(100_000, 640, 480, dev)
+    budget, _ = profile_step.probe_budget(cam, params, alive)
+    return {"bench view": check_path_kernels("profile_step bench view", params, alive, cam,
+                                             budget, {3: None}, backward=True)}
+
+
+def parity_kernels(dev):
+    """Kernels 1-2 on the parity harness's first GT render (the true scene
+    at --gt-ss times 480x352, its GT budget), kernels 1-5 on its first
+    training view at 480x352 from the SfM-like init (SH degree 0, the fixed
+    training budget)."""
+    import numpy as np
+
+    from semantic_gaussians_torch.core.gaussians import init_from_pcd
+    from semantic_gaussians_torch.tools import parity_harness as ph
+
+    args = ph.parse_args([])
+    rng = np.random.default_rng(11)
+    tpts, tcols = ph.build_true_scene(rng, density=args.density)
+    true_params, true_alive = init_from_pcd(tpts, tcols, sh_degree=3, device=dev)
+    cams, _ = ph.ring_cameras(args.width, args.height, dev)
+    ss = args.gt_ss
+    out = {"gt view": check_path_kernels(
+        "parity GT view", true_params, true_alive,
+        cams[0].resized(args.width * ss, args.height * ss), ph.GT_PAIR_BUDGET * ss,
+        {3: None})}
+    del true_params, true_alive
+    params, alive, _ = ph.sfm_init(rng, tpts, tcols, args, dev)
+    out["training view"] = check_path_kernels(
+        "parity training view", params, alive, cams[0], args.pair_budget, {3: None},
+        backward=True, sh_degree=0)
+    return out
+
+
+def semantic_kernels(args, dev):
+    """Kernels 1-2 on the semantic harness's first eval view at its tuned
+    budget: C = dim (mode 2d's feature render; the fused features' stand-in
+    is each Gaussian's oracle text row) and C = K + 1 (the one-hot class
+    render of pred_on_3d)."""
+    import torch
+
+    from semantic_gaussians_torch.tools import semantic_harness as sh
+
+    sc = sh.build_scene(args, dev)
+    budget, _ = sh.eval_pair_budget(sc.eval_cams[0], sc.params, sc.alive)
+    cls = torch.from_numpy(sc.cls).to(dev).long()
+    labelled = (cls < len(sh.LABELS))[:, None]
+    one_hot = torch.nn.functional.one_hot(torch.where(labelled[:, 0], cls + 1, 0),
+                                          len(sh.LABELS) + 1).to(torch.float32) * labelled
+    feats = torch.from_numpy(sc.lookup).to(dev)[cls] * sc.alive[:, None]
+    return {"eval view": check_path_kernels(
+        "semantic eval view", sc.params, sc.alive, sc.eval_cams[0], budget,
+        {args.dim: feats, len(sh.LABELS) + 1: one_hot})}
+
+
+def profile_step_path(scene, dev, card):
+    """Phase 16 (a): tools.profile_step's bench step (its main), then the
+    port's train_step on the timed training view through the same
+    tracing, each table printed. Returns both tables' numbers."""
+    import torch
+
+    from semantic_gaussians_torch.ops.binning import default_pair_budget
+    from semantic_gaussians_torch.pipelines.train import TrainConfig, init_train_state, train_step
+    from semantic_gaussians_torch.tools import profile_step
+
+    bench = profile_step.main([])
+    info, cam, params, alive = training_view(scene, dev)
+    cfg = TrainConfig(spatial_lr_scale=float(info.nerf_normalization["radius"]))
+    bg = torch.zeros(3, device=dev)
+    budget = default_pair_budget(params.capacity)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tdir:
+        prof = profile_step.profile_steps(
+            lambda st: train_step(st, cam, bg, cfg, 3, pair_budget=budget)[0],
+            init_train_state(params, alive), Path(tdir), dev)
+    profile_step.print_table(f"train_step on the timed training view ({card})", prof)
+    for name, p in (("bench step", bench), ("train_step", prof)):
+        if not p["rows"] or not p["device_busy_ms"]:
+            fail(f"profile_step: the {name}'s trace holds no device time")
+    return dict(bench=bench, train_step=prof, train_step_budget=budget)
+
+
+def parity_path(workdir):
+    """Phase 16 (b): the parity harness at full width, PARITY_ITERS deep."""
+    from semantic_gaussians_torch.tools import parity_harness as ph
+
+    args = ph.parse_args(["--iters", str(PARITY_ITERS), "--out", str(workdir / "parity.json")])
+    t0 = time.perf_counter()
+    report, extra = ph.run(args)
+    wall = time.perf_counter() - t0
+    curve = {c["iter"]: c for c in report["curve"]}
+    p50, p550 = curve[50]["test_psnr"], curve[550]["test_psnr"]
+    n_init, alive = report["config"]["n_init"], curve[PARITY_ITERS]["alive"]
+    checks = dict(psnr_rises=p550 >= p50 + 3.0, psnr_floor=p550 >= 27.0,
+                  densify_grew=alive > n_init,
+                  zero_overflow=report["checks"]["zero_overflow"])
+    print(f"parity harness ({PARITY_ITERS} of 30,000 iterations): test PSNR {p50:.2f} at 50, "
+          f"{p550:.2f} at 550; alive {n_init} -> {alive} at {PARITY_ITERS}; "
+          f"overflow {report['final']['total_overflow']}; {wall:.1f} s; {extra}")
+    for name, ok in checks.items():
+        if not ok:
+            fail(f"parity harness cut: check {name} failed ({report['final']})")
+    return dict(psnr_50=p50, psnr_550=p550, psnr_end=report["final"]["test_psnr"],
+                n_true=report["config"]["n_true"], n_init=n_init, alive=alive, checks=checks,
+                wall_s=wall, **extra)
+
+
+def semantic_args(workdir):
+    """The semantic harness's arguments at SEMANTIC_CUT's depth."""
+    from semantic_gaussians_torch.tools import semantic_harness as sh
+
+    cut = SEMANTIC_CUT
+    return sh.parse_args([
+        "--n-fuse", str(cut["n_fuse"]), "--n-eval", str(cut["n_eval"]),
+        "--epochs", str(cut["epochs"]), "--epoch-block", str(cut["epochs"]),
+        "--workdir", str(workdir / "semantic"), "--out", str(workdir / "semantic.json")])
+
+
+def semantic_path(args):
+    """Phase 16 (c): the semantic harness at full width, SEMANTIC_CUT deep."""
+    import numpy as np
+
+    from semantic_gaussians_torch.tools import semantic_harness as sh
+
+    cut = SEMANTIC_CUT
+    report, extra = sh.run(args)
+    m = report["metrics"]
+    checks = dict(fused_cos=report["checks"]["fused_cos"], visited=report["checks"]["visited"],
+                  miou_2d=report["checks"]["miou_2d"],
+                  finite=bool(np.isfinite([m["miou_3d"], m["miou_ensemble"]]).all()),
+                  all_counted=all(v == extra["labelled_pixels"]
+                                  for v in extra["counted_pixels"].values()))
+    print(f"semantic harness ({cut}): {json.dumps(m)}; counted {extra['counted_pixels']} of "
+          f"{extra['labelled_pixels']} labelled pixels; {extra['wall_s']:.1f} s")
+    for name, ok in checks.items():
+        if not ok:
+            fail(f"semantic harness cut: check {name} failed ({m})")
+    return dict(metrics=m, checks=checks, timings=report["timings"],
+                labelled_pixels=extra["labelled_pixels"], wall_s=extra["wall_s"])
+
+
+def harness_phase(scene, dev, card):
+    """Phase 16: the three harness paths, each with its launch counts, and
+    the kernels held against their plain versions on each path's inputs
+    (outside the counted runs)."""
+    import torch
+
+    t0 = time.perf_counter()
+    kernels_of_training = ("expand", "composite_fwd", "composite_bwd", "segsum")
+    out, launches, checked = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_harness_") as tmp:
+        work = Path(tmp)
+        checked["profile_step"] = profile_step_kernels(dev)
+        out["profile_step"], launches["profile_step"] = count_launches(
+            "profile_step", lambda: profile_step_path(scene, dev, card), kernels_of_training)
+        checked["parity_harness"] = parity_kernels(dev)
+        torch.cuda.empty_cache()
+        out["parity"], launches["parity_harness"] = count_launches(
+            "parity harness", lambda: parity_path(work), kernels_of_training)
+        torch.cuda.empty_cache()
+        args = semantic_args(work)
+        checked["semantic_harness"] = semantic_kernels(args, dev)
+        torch.cuda.empty_cache()
+        out["semantic"], launches["semantic_harness"] = count_launches(
+            "semantic harness", lambda: semantic_path(args), ("expand", "composite_fwd"))
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    # {kernel: {path: largest |kernel - plain| over the path's checked views}}
+    errors = {}
+    for path, views in checked.items():
+        for errs in views.values():
+            for what, err in errs.items():
+                kernel = errors.setdefault(what.split(" ")[0], {})
+                kernel[path] = max(kernel.get(path, 0.0), err)
+    cuts = dict(parity_iters=f"{PARITY_ITERS} of 30,000",
+                semantic=f"{SEMANTIC_CUT['n_fuse']} of 30 fused views, {SEMANTIC_CUT['n_eval']} "
+                         f"of 8 evaluated, {SEMANTIC_CUT['epochs']} of 300 distill steps")
+    bench, train = out["profile_step"]["bench"], out["profile_step"]["train_step"]
+    busy = ("wall_ms", "traced_wall_ms", "device_busy_ms", "device_busy_share")
+    print(json.dumps({"card": card, "phase16": dict(
+        wall_s=wall, cuts=cuts, launches=launches,
+        profile_step=dict(
+            bench=dict(pairs=bench["pairs"], budget=bench["budget"],
+                       **{k: bench[k] for k in busy}, top=bench["rows"][:12]),
+            train_step=dict(budget=out["profile_step"]["train_step_budget"],
+                            **{k: train[k] for k in busy}, top=train["rows"][:12])),
+        parity=out["parity"], semantic=out["semantic"], kernel_checks=checked)},
+        default=str))
+    print(f"phase 16 (harnesses): {wall:.1f} s; launches {launches}")
+    return dict(out, launches=launches, errors=errors, wall_s=wall)
 
 
 def segsum_replay_only():

@@ -1,13 +1,14 @@
 """Config system: YAML + CLI dotlist overrides.
 
 Port of semantic_gaussians_tpu.config.config: load a YAML file, merge
-`a.b.c=value` overrides (values YAML-parsed), print the resolved config.
+`a.b.c=value` overrides (values YAML-parsed), look up nested keys with a
+default, print the resolved config.
 """
 from __future__ import annotations
 
 import copy
 from pathlib import Path
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import yaml
 
@@ -75,6 +76,17 @@ def load_config(path, argv: Optional[List[str]] = None) -> DotDict:
     dotlist = argv if argv is not None else sys.argv[2:]
     dotlist = [a for a in dotlist if "=" in a and not a.startswith("-")]
     return merge_dotlist(cfg, dotlist)
+
+
+def resolve(cfg: DotDict, *keys, default=None) -> Any:
+    """cfg[k0][k1]...; `default` where a key is missing or a node on the
+    way is not a dict."""
+    node = cfg
+    for k in keys:
+        if not isinstance(node, dict) or k not in node:
+            return default
+        node = node[k]
+    return node
 
 
 def pretty(cfg: DotDict) -> str:

@@ -2,8 +2,9 @@
 
 Port of semantic_gaussians_tpu.models.predictors. Fusion and evaluation
 consume per-pixel feature maps [H, W, C] and L2-normalized text features
-[K, C] through one duck-typed protocol (`embedding_dim`,
-`extract_image_feature(img, img_size=(W, H))`, `extract_text_feature`):
+[K, C] through one protocol, Predictor2D (`embedding_dim`,
+`extract_image_feature(img, img_size=(W, H))`, `extract_text_feature`),
+which every provider below meets:
 
   * PrecomputedFeatureProvider: per-view feature maps exported by an
     offline 2D model (.npy / .npz / .pt), the production path for OpenSeg.
@@ -22,10 +23,25 @@ from __future__ import annotations
 import hashlib
 import json
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import Protocol, Sequence, Tuple, runtime_checkable
 
 import numpy as np
 import torch
+
+
+@runtime_checkable
+class Predictor2D(Protocol):
+    """What fusion and evaluation ask of a 2D provider."""
+
+    embedding_dim: int
+
+    def extract_image_feature(
+        self, img_path: str, img_size: Tuple[int, int]
+    ) -> np.ndarray:  # [H, W, C]
+        ...
+
+    def extract_text_feature(self, labelset: Sequence[str]) -> np.ndarray:
+        ...  # [K, C] normalized
 
 
 def _resize_chw_nearest(feat_hwc: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
@@ -184,7 +200,7 @@ class TorchCLIPTextEncoder:
         raise NotImplementedError("text-only encoder")
 
 
-def make_predictor(name: str, cfg, device=None):
+def make_predictor(name: str, cfg, device=None) -> Predictor2D:
     """Build a 2D provider by name from the `fusion` (or `eval`) config
     section: precomputed / openseg (offline exports), lseg, samclip,
     vlpart (local checkpoints: `lseg_checkpoint`, `sam_checkpoint`,

@@ -220,3 +220,19 @@ def project_gaussians(
         radii_xy=radii_xy,
         cull_ellipse=cull_ellipse,
     )
+
+
+def mark_visible(
+    means: torch.Tensor, world_view: torch.Tensor, full_proj: torch.Tensor
+) -> torch.Tensor:
+    """[N] bool frustum visibility, the reference rasterizer's markVisible:
+    in front of the near plane (view z > NEAR_CULL_Z) and inside a loose
+    +/-1.3 NDC box."""
+    p_view = means @ world_view[:3, :3].T + world_view[:3, 3]
+    p_hom = means @ full_proj[:3, :3].T + full_proj[:3, 3]
+    p_w = means @ full_proj[3, :3] + full_proj[3, 3]
+    rw = 1.0 / torch.where(p_w.abs() > 1e-7, p_w, torch.full_like(p_w, 1e-7))
+    ndc = p_hom * rw[:, None]
+    in_front = p_view[:, 2] > NEAR_CULL_Z
+    in_box = (ndc[:, 0].abs() < 1.3) & (ndc[:, 1].abs() < 1.3)
+    return in_front & in_box

@@ -166,6 +166,19 @@ def item_tensors(item: DistillItem, coords: np.ndarray, device):
         coords, item.feats, item.gt, item.gt_mask, item.mask))
 
 
+def distill_scene_features(model: MinkUNet, item: DistillItem) -> torch.Tensor:
+    """Inference on one item: its topology built on the model's device and
+    one eval-mode forward. Returns the per-voxel features [V, C] (padded
+    voxels included)."""
+    device = next(model.parameters()).device
+    coords = torch.from_numpy(np.ascontiguousarray(item.coords)).to(device)
+    mask = torch.from_numpy(np.ascontiguousarray(item.mask)).to(device)
+    topo = build_topology(coords, mask)
+    model.eval()
+    with torch.no_grad():
+        return model(torch.from_numpy(np.ascontiguousarray(item.feats)).to(device), topo)
+
+
 def make_gaussian_features(params, alive, feature_type: str, voxel_size: float,
                            voxel_budget: int):
     """The distilled net's per-Gaussian features of a scene, voxelized once:

@@ -361,6 +361,7 @@ def train_loop(
     shuffle_seed: int = 0,
     steps_per_dispatch: int = 1,
     tb_dir: Optional[str] = None,
+    runner: Optional[GraphRunner] = None,
 ):
     """Single-device driver, the JAX package's train_loop step for step:
     cameras in the order `np.random.default_rng(shuffle_seed)` permutes
@@ -379,7 +380,11 @@ def train_loop(
     cameras whose statics differ, runs train_step step by step. `tb_dir`
     logs the JAX package's TensorBoard scalars every 10 iterations and the
     opacity histogram every 1000 (utils.logging_utils.TBLogger; nothing
-    without tensorboard).
+    without tensorboard). `runner` keeps the graphs across calls: a run cut
+    into many calls (the parity harness's 50-iteration chunks) passes one
+    runner to all of them and captures each set of statics once, as the
+    JAX package's jit cache outlives a call; by default every call makes
+    its own.
 
     Returns (state, log): log["loss"] / ["psnr"] / ["overflow"] /
     ["num_pairs"] are device tensors with one entry per step, log["budget"]
@@ -399,7 +404,7 @@ def train_loop(
     pending_check = None
     timer = StepTimer()
     tb = TBLogger(tb_dir) if tb_dir else None
-    runner = GraphRunner(dev)
+    runner = runner or GraphRunner(dev)
     keys = ("loss", "psnr", "overflow", "num_pairs")
     log = {k: torch.zeros(iters, dtype=torch.float32, device=dev) for k in keys}
     log.update(budget=[], cameras=[], chunks=[], densify=[], history=[])

@@ -26,6 +26,23 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([r0, r1, r2], dim=-2)
 
 
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> quaternion (w, x, y, z), branch-free:
+    the four candidates' magnitudes from the diagonal, the signs of x, y, z
+    from the off-diagonal differences, then normalized."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    qw = torch.sqrt(torch.clamp(1 + m00 + m11 + m22, min=0)) / 2
+    qx = torch.sqrt(torch.clamp(1 + m00 - m11 - m22, min=0)) / 2
+    qy = torch.sqrt(torch.clamp(1 - m00 + m11 - m22, min=0)) / 2
+    qz = torch.sqrt(torch.clamp(1 - m00 - m11 + m22, min=0)) / 2
+    qx = torch.copysign(qx, m21 - m12)
+    qy = torch.copysign(qy, m02 - m20)
+    qz = torch.copysign(qz, m10 - m01)
+    return normalize_quat(torch.stack([qw, qx, qy, qz], dim=-1))
+
+
 def build_scaling_rotation(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
     """L = R @ diag(s): [..., 3, 3]."""
     return quat_to_rotmat(normalize_quat(quats)) * scales[..., None, :]
@@ -50,6 +67,16 @@ def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def unstrip_symmetric(v: torch.Tensor) -> torch.Tensor:
+    """6-vector (xx, xy, xz, yy, yz, zz) -> full symmetric [..., 3, 3]."""
+    xx, xy, xz, yy, yz, zz = (v[..., i] for i in range(6))
+    return torch.stack([
+        torch.stack([xx, xy, xz], dim=-1),
+        torch.stack([xy, yy, yz], dim=-1),
+        torch.stack([xz, yz, zz], dim=-1),
+    ], dim=-2)
 
 
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
