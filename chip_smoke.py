@@ -174,6 +174,21 @@ plain PyTorch version:
      view at 960x704 on the true scene (budget 8,388,608: expand, forward)
      and a training view at 480x352 from the init (all four); (c) the
      first eval view at C = 512 (the walk and contraction pair) and C = 4.
+ 17. (run after phase 16) the bench tools of semantic_gaussians_torch/tools
+     as one main path (its launches counted from 0, with those the bench
+     and bench_scaling children report): `python -m ...tools.bench` as a
+     child process at bench.py's four configurations (100k fwd+bwd and
+     forward-only at 640x480, 1M, 5M at 1920x1080), each line checked for
+     bench.py's seven keys and the card's stamp; bench_components,
+     bench_eval, bench_amg and bench_scaling (one NCCL rank) at their
+     defaults; bench_distill's timing body at full width (131,072 room
+     voxels, MinkUNet34A, 56 -> 768) cut to DISTILL_CUT, with its peak
+     memory. Before the counted run, kernels 1-5 are held against their
+     plain versions on the tools' own views (phase 2's tolerances): bench's
+     1M view and its 5M 1920x1080 view (10.9M pairs, 120x68 tiles) at the
+     probe's budget, bench_components' view at 393,216, bench_scaling's
+     SH-0 view at 655,360; kernels 1-2 on bench_eval's first view at
+     C = 768 (the 100k view is held in phase 16).
 Every number is stamped with the card's name and power limit.
 
 Prints one JSON line of per-kernel numbers, the card's name and power limit,
@@ -426,6 +441,9 @@ def main():
                             dev)
         harnesses = harness_phase(Path(scene_tmp) / "scene", dev, card)
 
+    # ---------------------------------------------------------------- 17
+    bench_tools = bench_tools_phase(dev, card)
+
     # ---------------------------------------------------------------- scene
     arrays, feats_np = make_scene(np, N_GAUSSIANS)
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
@@ -636,10 +654,13 @@ def main():
              "fusion": fused["launches"], "distill": distilled["launches"],
              "eval": evaluated["launches"], **models_2d["launches"],
              "tools": tools["launches"], "distributed": distributed["launches"],
-             **harnesses["launches"]}
+             **harnesses["launches"], "bench_tools": bench_tools["launches"]}
     for e in kernel_lines:
-        if e["name"] in harnesses["errors"]:
-            e["max_abs_err_by_path"] = harnesses["errors"][e["name"]]
+        by_path_err = dict(harnesses["errors"].get(e["name"], {}))
+        if e["name"] in bench_tools["errors"]:
+            by_path_err["bench_tools"] = bench_tools["errors"][e["name"]]
+        if by_path_err:
+            e["max_abs_err_by_path"] = by_path_err
         by_path = {name: counts[e["name"]] for name, counts in paths.items()}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
@@ -3956,6 +3977,181 @@ def harness_phase(scene, dev, card):
         parity=out["parity"], semantic=out["semantic"], kernel_checks=checked)},
         default=str))
     print(f"phase 16 (harnesses): {wall:.1f} s; launches {launches}")
+    return dict(out, launches=launches, errors=errors, wall_s=wall)
+
+
+# ------------------------------------------------------------------ phase 17
+# bench.py's four configurations (the headline, its serving path, BASELINE
+# configs #2 and #4), each run as `python -m semantic_gaussians_torch.tools.bench`.
+# The first run probes the card from a child process; the later ones skip
+# the probe (--probe-timeout 0), which costs a process start and a CUDA init.
+BENCH_RUNS = (("100k fwd+bwd", []),
+              ("100k forward-only", ["--forward-only", "--probe-timeout", "0"]),
+              ("1M fwd+bwd", ["--n", "1000000", "--probe-timeout", "0"]),
+              ("5M 1920x1080 fwd+bwd", ["--n", "5000000", "--width", "1920", "--height", "1080",
+                                        "--probe-timeout", "0"]))
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "step_ms", "pairs", "device"]
+BENCH_TIMEOUT_S = 420
+# bench_distill at full width (131,072 room voxels, MinkUNet34A, 56 -> 768),
+# cut in depth: 2 warm-up + 2 timed steps, 1 + 2 forwards.
+DISTILL_VOXELS = 131_072
+DISTILL_CUT = dict(inner=2, iters=1)
+
+
+def run_bench(label, args, card):
+    """bench as a user runs it, in a child process: its one JSON line,
+    checked for bench.py's keys and values, and the child's kernel launches
+    (its stderr's "kernel launches" line)."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "semantic_gaussians_torch.tools.bench", *args], cwd=ROOT,
+            capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"bench {label}: no result in {BENCH_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"bench {label}: exit code {proc.returncode}: {proc.stdout[-800:]} {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    try:
+        record = json.loads(lines[-1])
+        launches = json.loads(next(l for l in proc.stderr.splitlines()
+                                   if l.startswith("kernel launches "))[len("kernel launches "):])
+    except (IndexError, StopIteration, json.JSONDecodeError) as e:
+        fail(f"bench {label}: malformed output ({e}): {proc.stdout[-800:]} {proc.stderr[-800:]}")
+    mode = "forward/serving" if "--forward-only" in args else "fwd+bwd"
+    ok = (len(lines) == 1 and isinstance(record, dict) and list(record) == BENCH_KEYS
+          and record["unit"] == "rays/s" and record["device"] == card
+          and record["metric"].startswith(f"rays/s per chip ({mode}), ")
+          and isinstance(record["pairs"], int) and record["pairs"] > 0
+          and all(isinstance(record[k], float) and record[k] > 0
+                  for k in ("value", "vs_baseline", "step_ms"))
+          and record["vs_baseline"] == round(record["value"] / 1e8, 4))
+    if not ok:
+        fail(f"bench {label}: malformed line {lines}")
+    print(f"bench {label}: {json.dumps(record)} ({wall:.1f} s)")
+    return dict(record, wall_s=wall), launches
+
+
+def bench_path_kernels(dev):
+    """Kernels 1-5 on the tools' own views, outside the counted run (the
+    100k bench view is held in phase 16): bench.py's 1M view and its 5M
+    1920x1080 view at the probe's tuned budget, bench_components' view at
+    its fixed budget, bench_scaling's SH-0 view at its one-rank band budget;
+    kernels 1-2 on bench_eval's first view at C = 768 with its features, at
+    eval_views' default budget. Returns {view: {kernel: largest |kernel -
+    plain|}} and the seconds each view's check took."""
+    import torch
+
+    from semantic_gaussians_torch.ops.binning import default_pair_budget
+    from semantic_gaussians_torch.tools import bench, bench_components, bench_eval
+    from semantic_gaussians_torch.tools import bench_scaling
+
+    def bench_view(n, w, h):
+        params, alive, cam, _ = bench.bench_scene(n, w, h, dev)
+        return params, alive, cam, bench.probe_budget(cam, params, alive)[0]
+
+    def eval_view():
+        cams, _, params, alive, feats, _, _ = bench_eval.eval_inputs(
+            100_000, 768, 1, 640, 480, 19, dev)
+        return params, alive, cams[0], default_pair_budget(params.capacity), {768: feats}
+
+    views = {
+        "1M view": lambda: bench_view(1_000_000, 640, 480),
+        "5M 1920x1080 view": lambda: bench_view(5_000_000, 1920, 1080),
+        "bench_components view": lambda: (*bench.bench_scene(100_000, 640, 480, dev)[:3],
+                                          bench_components.BUDGET),
+        "bench_scaling band view": lambda: (*bench_scaling.scaling_scene(100_000, 640, 480,
+                                                                         dev)[:3],
+                                            bench_scaling.BAND_BUDGET),
+        "bench_eval view 0": eval_view,
+    }
+    errs, secs = {}, {}
+    for label, make in views.items():
+        t0 = time.perf_counter()
+        params, alive, cam, budget, *feats = make()
+        errs[label] = check_path_kernels(f"bench tools, {label}", params, alive, cam, budget,
+                                         feats[0] if feats else {3: None}, backward=not feats)
+        del params, alive, cam, feats
+        torch.cuda.empty_cache()
+        secs[label] = time.perf_counter() - t0
+        print(f"bench tools, {label}: checked in {secs[label]:.1f} s")
+    return errs, secs
+
+
+def distill_bench(dev):
+    """bench_distill's timing body at full width and DISTILL_CUT's depth,
+    with the peak memory it allocated."""
+    import torch
+
+    from semantic_gaussians_torch.tools import bench_distill
+
+    torch.cuda.empty_cache()
+    r, peak = peak_gib(lambda: bench_distill.time_distill(
+        DISTILL_VOXELS, "MinkUNet34A", 768, dev, **DISTILL_CUT))
+    print(f"bench_distill ({DISTILL_CUT}): {DISTILL_VOXELS} room voxels ({r['voxels']} unique), "
+          f"step {r['step_ms']:.1f} ms ({r['step_mvox_s']:.3f} Mvoxels/s, loss {r['loss']:.4f}), "
+          f"inference {r['infer_ms']:.1f} ms ({r['infer_mvox_s']:.3f} Mvoxels/s), peak "
+          f"{peak:.2f} GiB")
+    return dict(r, peak_gib=peak)
+
+
+def bench_tools_phase(dev, card):
+    """Phase 17: the six bench tools on the card, as one main path whose
+    launches are counted from 0 (the in-process tools' counters, plus the
+    launches the bench and bench_scaling children report), after kernels
+    1-5 are held against their plain versions on the tools' views
+    (bench_path_kernels)."""
+    import torch
+
+    from semantic_gaussians_torch.tools import bench_amg, bench_components, bench_eval
+    from semantic_gaussians_torch.tools import bench_scaling
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    checked, check_s = bench_path_kernels(dev)
+    children = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            children[k] = children.get(k, 0) + v
+
+    def run():
+        out = {"bench": {}}
+        for label, args in BENCH_RUNS:
+            out["bench"][label], launches = run_bench(label, args, card)
+            add(launches)
+        out["bench_components"] = bench_components.main([])
+        if out["bench_components"]["overflow"]:
+            fail(f"bench_components: overflow {out['bench_components']}")
+        out["bench_eval"] = {k: (v if k == "speedup" else {
+            m: x for m, x in v.items() if m != "confusion"})
+            for k, v in bench_eval.main([]).items()}
+        out["bench_amg"] = bench_amg.main([])
+        out["bench_distill"] = distill_bench(dev)
+        torch.cuda.empty_cache()
+        scaling = bench_scaling.main([])
+        if [r["devices"] for r in scaling["rows"]] != [1]:
+            fail(f"bench_scaling: rows {scaling['rows']}")
+        add(scaling["launches"])
+        out["bench_scaling"] = scaling["rows"]
+        return out
+
+    out, launches = count_launches("bench tools", run,
+                                   ("expand", "composite_fwd", "composite_bwd", "segsum"))
+    for k, v in children.items():
+        launches[k] = launches.get(k, 0) + v
+    wall = time.perf_counter() - t0
+    print(json.dumps({"card": card, "phase17": dict(
+        wall_s=wall, launches=launches, child_launches=children, kernel_checks=checked,
+        kernel_check_s=check_s,
+        cut=f"bench_distill {DISTILL_CUT}", **out)}, default=str))
+    print(f"phase 17 (bench tools): {wall:.1f} s; launches {launches}")
+    errors = {}
+    for errs in checked.values():
+        for what, err in errs.items():
+            kernel = what.split(" ")[0]
+            errors[kernel] = max(errors.get(kernel, 0.0), err)
     return dict(out, launches=launches, errors=errors, wall_s=wall)
 
 

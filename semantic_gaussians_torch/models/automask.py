@@ -164,14 +164,20 @@ class SamAutoMask:
         logits, iou = self.model.predict_points(emb, points[:, None], labels)
         return resample_logits(logits[:, 1:], hw, rhw), iou[:, 1:]
 
+    def stability(self, logits):
+        """Each mask's stability score: the pixels above threshold + offset
+        over those above threshold - offset."""
+        thr, off = self.amg.mask_threshold, self.amg.stability_score_offset
+        inter = (logits > thr + off).sum(dim=(-2, -1))
+        union = (logits > thr - off).sum(dim=(-2, -1))
+        return inter / union.clamp(min=1)
+
     def select(self, logits, iou, nvalid: int):
         """The filters of one batch, on the logits' device: for each scale
         the kept rows' (masks, iou, stability, boxes) as host arrays."""
         a = self.amg
-        thr, off = a.mask_threshold, a.stability_score_offset
-        inter = (logits > thr + off).sum(dim=(-2, -1))
-        union = (logits > thr - off).sum(dim=(-2, -1))
-        stab = inter / union.clamp(min=1)
+        thr = a.mask_threshold
+        stab = self.stability(logits)
         logits, iou, stab = logits[:nvalid], iou[:nvalid], stab[:nvalid]
         out = []
         for sc in range(3):

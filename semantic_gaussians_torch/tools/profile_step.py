@@ -25,75 +25,14 @@ import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
-from ..core.gaussians import FIELDS, GaussianParams, params_from_numpy
-from ..ops.binning import default_pair_budget
-from ..pipelines.train import tuned_pair_budget
-from ..renderer import render
-from ..utils.camera import make_camera
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, synchronize
 from ..utils.logging_utils import device_busy_ms, profile_trace, top_ops
+from .bench import bench_scene, fwd_bwd_step, probe_budget
 
 STEPS = 5
 TOP_K = 45
-
-
-def bench_scene(n: int, width: int, height: int, device):
-    """bench.py's scene law at seed 0: (params, alive, camera, target)."""
-    rng = np.random.default_rng(0)
-    pts = (rng.normal(size=(n, 3)).astype(np.float32) * np.array([1.6, 1.1, 1.0], np.float32)
-           + np.array([0, 0, 4], np.float32))
-    cols = rng.uniform(size=(n, 3)).astype(np.float32)
-    quats = np.zeros((n, 4), np.float32)
-    quats[:, 0] = 1.0
-    arrays = dict(
-        means=pts,
-        sh_dc=((cols - 0.5) / 0.28209479177387814)[:, None, :],
-        sh_rest=np.zeros((n, 15, 3), np.float32),
-        log_scales=(rng.uniform(-4.5, -3.0, size=(n, 3))
-                    - np.log(max(n / 1e5, 1.0)) / 3.0).astype(np.float32),
-        quats=quats,
-        opacity_logits=rng.uniform(-1.0, 1.5, size=(n, 1)).astype(np.float32),
-    )
-    params = params_from_numpy(arrays, device)
-    alive = torch.ones(n, dtype=torch.bool, device=device)
-    cam = make_camera(np.eye(3), np.zeros(3), 1.4, 1.1, width, height, device=device)
-    target = torch.from_numpy(rng.uniform(size=(height, width, 3)).astype(np.float32)).to(device)
-    return params, alive, cam, target
-
-
-def probe_budget(cam, params, alive):
-    """bench.py's budget: (tuned_pair_budget of a probe render's pair
-    count, that count); the probe's own budget is capped under 2^24."""
-    n = params.capacity
-    with torch.no_grad():
-        probe = render(cam, params, alive=alive,
-                       pair_budget=max(1 << 20, min(default_pair_budget(n), (1 << 24) - 8192)))
-    if int(probe["overflow"]):
-        raise RuntimeError("probe render overflowed its pair budget")
-    return tuned_pair_budget(int(probe["num_pairs"])), int(probe["num_pairs"])
-
-
-def mse_step(cam, alive, target, budget):
-    """step(params) -> params - 1e-30 * d mean((render - target)^2) / d params."""
-
-    def step(params: GaussianParams) -> GaussianParams:
-        leaves = {f: getattr(params, f).detach().requires_grad_(True) for f in FIELDS}
-        out = render(cam, GaussianParams(**leaves), alive=alive, pair_budget=budget)
-        loss = torch.mean((out["render"] - target) ** 2)
-        grads = torch.autograd.grad(loss, [leaves[f] for f in FIELDS])
-        with torch.no_grad():
-            return GaussianParams(**{f: leaves[f].detach() - 1e-30 * g
-                                     for f, g in zip(FIELDS, grads)})
-
-    return step
-
-
-def _sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _timed_steps(step, state, device, steps: int):
@@ -101,7 +40,7 @@ def _timed_steps(step, state, device, steps: int):
     t0 = time.perf_counter()
     for _ in range(steps):
         state = step(state)
-    _sync(device)
+    synchronize(device)
     return state, (time.perf_counter() - t0) * 1e3 / steps
 
 
@@ -112,7 +51,7 @@ def profile_steps(step, state, trace_dir, device, steps: int = STEPS, k: int = T
     a step (the profiler's: longer), device_busy_ms a step and
     device_busy_share, device_busy_ms over the untraced wall_ms)."""
     state = step(state)
-    _sync(device)
+    synchronize(device)
     state, wall_ms = _timed_steps(step, state, device, steps)
     shutil.rmtree(trace_dir, ignore_errors=True)
     with profile_trace(trace_dir):
@@ -152,8 +91,8 @@ def main(argv=None) -> dict:
     budget, pairs = probe_budget(cam, params, alive)
     print(f"pairs={pairs} tuned budget={budget}")
     with tempfile.TemporaryDirectory(prefix="profile_step_") as tmp:
-        prof = profile_steps(mse_step(cam, alive, target, budget), params,
-                             Path(tmp), dev)
+        step = fwd_bwd_step(cam, alive, target, budget)
+        prof = profile_steps(lambda p: step(p)[0], params, Path(tmp), dev)
     print_table("bench step", prof)
     return dict(prof, pairs=pairs, budget=budget)
 

@@ -35,3 +35,11 @@ def card_stamp(device: Union[str, torch.device]) -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[dev.index or 0] if out else torch.cuda.get_device_name(dev)
+
+
+def synchronize(device: Union[str, torch.device]) -> None:
+    """Wait for the work queued on a CUDA device; nothing on the CPU (its
+    ops finish before they return). Timers call it around timed work."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

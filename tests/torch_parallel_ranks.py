@@ -177,3 +177,14 @@ def cli_rank(rank, world, argv):
     summary = train_cli.main(argv)
     return dict(state=train_state_to_numpy(summary["state"]),
                 plys=[str(p) for p in summary["plys"]], history=summary["logs"][-1]["history"])
+
+
+def band_grads_rank(rank, world, n, width, height, budget):
+    """tools.bench_scaling's band step on the tool's scene: the MSE
+    gradients (FIELDS order) with the view split into `world` bands."""
+    from semantic_gaussians_torch.tools import bench_scaling
+
+    dev = multihost.rank_device("cpu")
+    params, alive, cam, target = bench_scaling.scaling_scene(n, width, height, dev)
+    mesh = bench_scaling.band_mesh(world)
+    return [_np(g) for g in bench_scaling.band_grads(cam, params, alive, target, mesh, budget)]
