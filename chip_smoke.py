@@ -5,8 +5,9 @@ Drives the port's main paths once at full width on one CUDA card (the
 viewer service, RGB training through the train CLI, 2D -> 3D fusion, 3D
 distillation and open-vocabulary evaluation through their CLIs, the 2D
 models behind the fusion and eval CLIs, the segment-sum probe tools, the
-multi-device schedules) and holds each hand-written kernel against its
-plain PyTorch version:
+multi-device schedules, the harnesses and bench tools, a ScanNet scene from
+its download) and holds each hand-written kernel against its plain PyTorch
+version:
 
   1. device: the card's name and power limit, torch and CUDA versions; the
      five kernel sources are built from csrc/ (one nvcc per source, all at
@@ -71,8 +72,8 @@ plain PyTorch version:
      classes, each carrying its label's text feature) and written as .npy;
      `python -m semantic_gaussians_torch.cli.fusion` (in process) fuses
      them with depth=render in chunks (chunk_views 4, capped at 2 by the
-     maps' bytes) and again view by view: the two .pt files equal bit for
-     bit. One expand and one forward-composite launch a depth render
+     maps' bytes; the CLI view by view is phase 18's). One expand and one
+     forward-composite launch a depth render
      (fusion_depth_renders), visited share above VISITED_FLOOR, mean cosine
      of fused against palette features >= 0.9, the .pt reloads.
  9b. distill path: `python -m semantic_gaussians_torch.cli.distill` (in
@@ -189,14 +190,37 @@ plain PyTorch version:
      probe's budget, bench_components' view at 393,216, bench_scaling's
      SH-0 view at 655,360; kernels 1-2 on bench_eval's first view at
      C = 768 (the 100k view is held in phase 16).
-Every number is stamped with the card's name and power limit.
+ 18. (run after phase 10, whose classes and label rendering it reuses) the
+     ScanNet path at ScanNet's widths, its launches counted from 0 over each
+     CLI run: write_sens writes a download of one scene (a .sens v4 capture
+     of SENS_FRAMES frames of a handheld sweep facing the 100k target,
+     colour 1296x968 JPEG, depth 640x480 zlib in millimetres from the
+     near-opaque target's median depth, frame SENS_LOST's pose -inf; a
+     label-filt zip of 16-bit raw ids above 255 for all frames; the
+     scannetv2-labels TSV); (a) `python -m ...tools.scannet_sens_reader` at
+     its defaults: 24 frames at 648x484, each depth PNG the capture's
+     resized; (b) `...tools.unzip_label_filt`: 24 labels of 120; (c) the
+     train CLI on the export, 100 steps from the loader's own random init,
+     phase 7's checks, kernels 1-5 held against their plain versions on its
+     first training view; (d) the fusion CLI with fusion.depth=image on the
+     fusion phase's model from 648x484x768 float16 maps of the ScanNet-20
+     palette (5 views), chunked and view by view (.pt bit for bit), visited
+     share above SCANNET_VISITED_FLOOR, cosine >= 0.9, and with
+     depth=render: Jaccard of the visited sets >= 0.9; (e) the eval CLI in
+     mode 2d at scene.dataset_name=scannet20 against label-filt through the
+     TSV at C = K + 1 and 768: mIoU >= 0.9, confusion row sums equal to the
+     ground truth's class counts mapped here with numpy.
+Every phase prints its wall time, and a summary line of them precedes the
+kernels line. Every number is stamped with the card's name and power limit.
 
 Prints one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failure exits non-zero before
 that line. Run from the root of a checkout: python3 chip_smoke.py
 """
+import contextlib
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -377,6 +401,16 @@ def profile(fn):
     }
 
 
+@contextlib.contextmanager
+def phase_wall(walls, name):
+    """Time one phase of main(): prints its wall time as it ends and keeps
+    it in `walls` for the summary line."""
+    t0 = time.perf_counter()
+    yield
+    walls[name] = time.perf_counter() - t0
+    print(f"phase {name}: {walls[name]:.1f} s")
+
+
 def make_scene(np, n, feats=True):
     """bench.py's synthetic scene law (seed 0): a Gaussian cloud 4 units in
     front of the camera, uniform colours as SH DC (degree 3, higher bands
@@ -424,27 +458,32 @@ def main():
     from semantic_gaussians_torch.pipelines.fusion import save_fused_features
 
     # ---------------------------------------------------------------- 1
+    t_run = time.perf_counter()
+    walls = {}
     card = card_line()
     dev = torch.device("cuda:0")
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    build_secs = kernels.build_all()
-    print(f"kernels built in {time.perf_counter() - t0:.2f} s: {build_secs}")
-    for name, log in kernels.BUILD_LOG.items():
-        regs = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
-        print(f"  {name}: {regs}")
+    with phase_wall(walls, "1 build"):
+        build_secs = kernels.build_all()
+        print(f"kernels built: {build_secs}")
+        for name, log in kernels.BUILD_LOG.items():
+            regs = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
+            print(f"  {name}: {regs}")
 
     # ---------------------------------------------------------------- 16
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as scene_tmp:
+    with phase_wall(walls, "16 harnesses"), tempfile.TemporaryDirectory(
+            prefix="chip_smoke_scene_") as scene_tmp:
         write_blender_scene(Path(scene_tmp) / "scene", make_scene(np, N_GAUSSIANS, False)[0],
                             dev)
         harnesses = harness_phase(Path(scene_tmp) / "scene", dev, card)
 
     # ---------------------------------------------------------------- 17
-    bench_tools = bench_tools_phase(dev, card)
+    with phase_wall(walls, "17 bench tools"):
+        bench_tools = bench_tools_phase(dev, card)
 
     # ---------------------------------------------------------------- scene
+    t_scene = time.perf_counter()
     arrays, feats_np = make_scene(np, N_GAUSSIANS)
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     tmpdir = Path(tmp.name)
@@ -474,7 +513,11 @@ def main():
     n = params.capacity
     budget = default_pair_budget(n)
 
+    walls["viewer scene"] = time.perf_counter() - t_scene
+    print(f"phase viewer scene: {walls['viewer scene']:.1f} s")
+
     # ---------------------------------------------------------------- 2
+    t_check = time.perf_counter()
     expand_shapes = {"viewer": expand_shape(params, alive, cam)}
     for cull, sh in expand_shapes["viewer"].items():
         check_expand(f"viewer cull={cull}", expand, sh["args"])
@@ -515,10 +558,13 @@ def main():
     probe = check_probe_kernels(dev)
     check_adversarial_cases(dev)
     check_composite_cases(dev)
+    walls["2 kernel checks"] = time.perf_counter() - t_check
+    print(f"phase 2 kernel checks: {walls['2 kernel checks']:.1f} s")
 
     # ---------------------------------------------------------------- 3
     from http.server import ThreadingHTTPServer
 
+    t_viewer = time.perf_counter()
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
@@ -533,46 +579,65 @@ def main():
         server.join(timeout=60)
         tmp.cleanup()
     del state, params, alive, proj, geom, feats, channel_cases, comp_cases
+    walls["3-5 viewer"] = time.perf_counter() - t_viewer
+    print(f"phase 3-5 viewer: {walls['3-5 viewer']:.1f} s")
 
     # ---------------------------------------------------------------- 6
-    check_gradients_vs_dense(arrays, cam)
+    with phase_wall(walls, "6 gradients"):
+        check_gradients_vs_dense(arrays, cam)
 
     # ---------------------------------------------------------------- 7
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as train_tmp:
-        trained = train_through_cli(Path(train_tmp), arrays, dev)
+        with phase_wall(walls, "7 training"):
+            trained = train_through_cli(Path(train_tmp), arrays, dev)
 
         # ------------------------------------------------------------ 8
-        step_times = time_training(trained["scene"], dev, card)
-        _, tcam, tparams, talive = training_view(trained["scene"], dev)
-        expand_shapes["training view"] = expand_shape(tparams, talive, tcam)
-        del tparams, talive
+        with phase_wall(walls, "8 training times"):
+            step_times = time_training(trained["scene"], dev, card)
+            _, tcam, tparams, talive = training_view(trained["scene"], dev)
+            expand_shapes["training view"] = expand_shape(tparams, talive, tcam)
+            del tparams, talive
 
         # ------------------------------------------------------------ 9, 9b, 10
-        fused = fuse_through_cli(Path(train_tmp), trained["scene"], arrays, dev, card)
-        distilled = distill_through_cli(Path(train_tmp), trained["scene"], fused, dev, card)
-        evaluated = eval_through_cli(Path(train_tmp), trained["scene"], fused, distilled, dev,
-                                     card)
+        with phase_wall(walls, "9 fusion"):
+            fused = fuse_through_cli(Path(train_tmp), trained["scene"], arrays, dev, card)
+        with phase_wall(walls, "9b distill"):
+            distilled = distill_through_cli(Path(train_tmp), trained["scene"], fused, dev, card)
+        with phase_wall(walls, "10 eval"):
+            evaluated = eval_through_cli(Path(train_tmp), trained["scene"], fused, distilled,
+                                         dev, card)
+
+        # ------------------------------------------------------------ 18
+        with phase_wall(walls, "18 scannet"):
+            scannet = scannet_phase(Path(train_tmp), arrays, fused, dev, card)
         del fused["state"]
 
         # ------------------------------------------------------------ 14
-        models_2d = models_2d_phase(Path(train_tmp), trained["scene"], fused, evaluated, dev,
-                                    card)
+        with phase_wall(walls, "14 2D models"):
+            models_2d = models_2d_phase(Path(train_tmp), trained["scene"], fused, evaluated,
+                                        dev, card)
 
         # ------------------------------------------------------------ 15
-        distributed = distributed_phase(Path(train_tmp), trained["scene"], fused, dev, card)
+        with phase_wall(walls, "15 distributed"):
+            distributed = distributed_phase(Path(train_tmp), trained["scene"], fused, dev,
+                                            card)
 
     # ---------------------------------------------------------------- 11
-    tools = run_probe_tools()
+    with phase_wall(walls, "11 probe tools"):
+        tools = run_probe_tools()
 
     # ---------------------------------------------------------------- 13
-    expand_shapes["1M"] = million_shape(dev)
-    ex_by_shape = check_and_time_expand(card, expand_shapes)
-    del expand_shapes
+    with phase_wall(walls, "13 expand"):
+        expand_shapes["1M"] = million_shape(dev)
+        ex_by_shape = check_and_time_expand(card, expand_shapes)
+        del expand_shapes
 
+    t_times = time.perf_counter()
     kt = time_backward_kernels(bwd, seg)
     kt["segsum_tools"] = time_segsums(tool_seg)
     del tool_seg
     pt = time_probe_kernels(probe)
+    walls["12 kernel times"] = time.perf_counter() - t_times
     print(json.dumps({"card": card, "training": {
         k: v for k, v in trained.items() if k != "scene"}, "train_step": step_times,
         "composite_bwd_by_channels": {str(c): {k: v for k, v in d.items()}
@@ -654,11 +719,14 @@ def main():
              "fusion": fused["launches"], "distill": distilled["launches"],
              "eval": evaluated["launches"], **models_2d["launches"],
              "tools": tools["launches"], "distributed": distributed["launches"],
-             **harnesses["launches"], "bench_tools": bench_tools["launches"]}
+             **harnesses["launches"], "bench_tools": bench_tools["launches"],
+             "scannet": scannet["launches"]}
     for e in kernel_lines:
         by_path_err = dict(harnesses["errors"].get(e["name"], {}))
         if e["name"] in bench_tools["errors"]:
             by_path_err["bench_tools"] = bench_tools["errors"][e["name"]]
+        if e["name"] in scannet["errors"]:
+            by_path_err["scannet"] = scannet["errors"][e["name"]]
         if by_path_err:
             e["max_abs_err_by_path"] = by_path_err
         by_path = {name: counts[e["name"]] for name, counts in paths.items()}
@@ -666,6 +734,8 @@ def main():
         e["launches_by_path"] = by_path
         if e["launches"] <= 0:
             fail(f"kernel {e['name']} was launched on no main path")
+    walls["total"] = time.perf_counter() - t_run
+    print(json.dumps({"card": card, "phase_walls_s": walls}))
     print(json.dumps({"kernels": kernel_lines}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -2018,10 +2088,12 @@ def fuse_through_cli(tmpdir, scene, arrays, dev, card):
     scene's 8 ring views with one precomputed 648x484x768 float16 feature
     map per view, in chunks (the YAML's chunk_views = 4, capped at 2 by the
     maps' bytes: one CUDA-graph replay a chunk), every launch count set to
-    0 just before and read just after; then again view by view
-    (chunk_views = 1): the two .pt files must be equal bit for bit. The
-    maps are rendered from a class palette, so the right fused feature of
-    every Gaussian is known. Returns what the eval phase needs."""
+    0 just before and read just after. (The CLI view by view against the
+    chunked CLI, .pt bit for bit, is phase 18's, with a depth input;
+    fuse_scene chunked against view by view on these views is timed and
+    compared below.) The maps are rendered from a class palette, so the
+    right fused feature of every Gaussian is known. Returns what the eval
+    phase needs."""
     import numpy as np
     import torch
 
@@ -2082,17 +2154,6 @@ def fuse_through_cli(tmpdir, scene, arrays, dev, card):
         if launches[name] != renders:
             fail(f"fusion launched {name} {launches[name]} times for {renders} depth renders "
                  f"of {len(cams)} views")
-    t0 = time.perf_counter()
-    per_view = fusion_cli.main([str(yaml), *overrides, f"fusion.out_dir={tmpdir / 'fused_per_view'}",
-                                "fusion.chunk_views=1"])
-    per_view_wall = time.perf_counter() - t0
-    got, want = (torch.load(p, weights_only=True) for p in (summary["out_path"],
-                                                            per_view["out_path"]))
-    if not (torch.equal(got["feat"], want["feat"]) and torch.equal(got["mask_full"],
-                                                                   want["mask_full"])):
-        fail("fusion: the chunked CLI's .pt differs from the per-view CLI's")
-    print(f"fusion CLI view by view: {per_view_wall:.1f} s; its .pt equals the chunked run's "
-          f"bit for bit (features and mask)")
     feats, visited = load_fused_features(summary["out_path"], capacity=params.capacity,
                                          device=dev)
     if int(visited.sum()) != summary["visited"] or bool(visited[~alive].any()):
@@ -2156,7 +2217,7 @@ def fuse_through_cli(tmpdir, scene, arrays, dev, card):
     print(f"fuse_scene a view: chunked {scene_ms['chunked']:.1f} / {scene_ms['chunked_again']:.1f}"
           f" ms, view by view {scene_ms['per_view']:.1f} ms; float32 features bit for bit")
     times = dict(fuse_view_ms=sum(parts.values()), parts_ms=parts, fuse_scene_view_ms=scene_ms,
-                 cli_wall_s=wall, per_view_cli_wall_s=per_view_wall, views=len(cams))
+                 cli_wall_s=wall, views=len(cams))
     print(json.dumps({"card": card, "fusion": dict(
         times, visited=summary["visited"], visited_share=share,
         cosine_mean=float(cos.mean()), launches=launches)}))
@@ -2168,6 +2229,10 @@ def fuse_through_cli(tmpdir, scene, arrays, dev, card):
 DISTILL_ARCH = "MinkUNet34A"  # the reference's distill net, 56 -> 768
 DISTILL_VOXEL, DISTILL_BUDGET = 0.02, 200_000  # distill_scannet.yaml's
 DISTILL_EPOCHS = 24  # one scene: one step an epoch; the hook runs at 12 and 24
+# Timed repetitions of the step, its parts and the UNet forward: few, as
+# phase 17's bench_distill times the step at full width on a room and the
+# semantic harness at a surface's density.
+DISTILL_TIMED = 2
 DISTILL_LOSS_DROP = 0.15  # measured 0.198 on this scene (0.995 -> 0.797, 24 steps)
 UNET_CHECK_VOXELS = 4096
 FLIP_NEAR_ZERO = 1e-5  # a ReLU flip's |float64 pre-activation| over its layer's max
@@ -2357,12 +2422,13 @@ def check_unet_card_vs_cpu(ply, pt, dev):
 
 def time_distill(item, fused, out_dir, dev, card):
     """One distill step at the full voxel count from a fresh MinkUNet34A:
-    the whole step (median of 5 after warm-up, host clock ending in a
-    synchronize), its parts (topology, forward + loss, backward, AdamW,
-    each ended by a synchronize; median of 5), the device-busy share of a
-    step, peak device memory, voxels a second; and one UNet inference as
-    eval 3d runs it (voxelize, topology, checkpoint load, forward,
-    scatter-back) and its forward alone."""
+    the whole step (median of DISTILL_TIMED after warm-up, host clock
+    ending in a synchronize), its parts (topology, forward + loss,
+    backward, AdamW, each ended by a synchronize; median of DISTILL_TIMED,
+    the model warm from the whole steps), the device-busy share of a step,
+    peak device memory, voxels a second; and one UNet inference as eval 3d
+    runs it (voxelize, topology, checkpoint load, forward, scatter-back;
+    one after warm-up) and its forward alone (median of DISTILL_TIMED)."""
     import torch
 
     from semantic_gaussians_torch.cli.eval_segmentation import distilled_features
@@ -2399,7 +2465,7 @@ def time_distill(item, fused, out_dir, dev, card):
         torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    step_ms = host_ms(one, 5)
+    step_ms = host_ms(one, DISTILL_TIMED)
     peak = torch.cuda.max_memory_allocated()
 
     def in_parts():
@@ -2422,7 +2488,7 @@ def time_distill(item, fused, out_dir, dev, card):
         mark()
         return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
 
-    runs = [in_parts() for _ in range(6)][1:]
+    runs = [in_parts() for _ in range(DISTILL_TIMED)]
     parts = {k: statistics.median(r[i] for r in runs)
              for i, k in enumerate(("topology", "forward", "backward", "adamw"))}
     prof = profile(one)
@@ -2442,7 +2508,7 @@ def time_distill(item, fused, out_dir, dev, card):
         torch.cuda.synchronize()
         return feats
 
-    infer_ms = host_ms(infer, 3)
+    infer_ms = host_ms(infer, 1)
     feats = infer()
     if feats.shape != (params.capacity, FEAT_DIM) or not torch.isfinite(feats).all():
         fail(f"eval 3d features: shape {tuple(feats.shape)}, finite {bool(torch.isfinite(feats).all())}")
@@ -2455,7 +2521,7 @@ def time_distill(item, fused, out_dir, dev, card):
             net(f, topo)
         torch.cuda.synchronize()
 
-    forward_ms = host_ms(forward, 5)
+    forward_ms = host_ms(forward, DISTILL_TIMED)
     times = dict(step_ms=step_ms, parts_ms=parts, profile=prof, peak_mem_gib=peak / 2**30,
                  voxels=item.num_voxels, voxels_per_s=item.num_voxels / (step_ms / 1e3),
                  neighbours=neighbours,
@@ -3577,7 +3643,9 @@ def distributed_items(world, job):
         for v in model.state_dict().values():
             h.update(v.detach().cpu().numpy().tobytes())
         dcheck["digest"] = h.hexdigest()
-    times["distill_step"] = host_ms(synced(lambda: pstep(*batch)), 2)
+    # one timed call after the checked one: the step is timed on one device
+    # in phase 9b and by bench_distill in phase 17
+    times["distill_step"] = host_ms(synced(lambda: pstep(*batch)), 1)
     checks["distill"] = dcheck
     del model, opt, pstep, batch
     torch.cuda.empty_cache()
@@ -4153,6 +4221,421 @@ def bench_tools_phase(dev, card):
             kernel = what.split(" ")[0]
             errors[kernel] = max(errors.get(kernel, 0.0), err)
     return dict(out, launches=launches, errors=errors, wall_s=wall)
+
+
+# ------------------------------------------------------------------ phase 18
+SCANNET_SCENE = "scene0000_00"
+SENS_FRAMES = 120  # a ScanNet scene holds thousands
+SENS_COLOR, SENS_DEPTH = (1296, 968), (640, 480)  # ScanNet's two cameras (width, height)
+SENS_SKIP = 5  # the reader's default frame_skip: frames 0, 5, ..., 115 exported
+SENS_LOST = 35  # its pose is all -inf, as ScanNet marks lost tracking (an exported frame)
+# The sweep's radius. The class cones are cut from one viewpoint, so the
+# labels a view sees agree with the fused features near it: on an H100, mode
+# 2d (C = K + 1 / 768) read mIoU 0.872 / 0.874 from a full ring around the
+# target, 0.894 / 0.864 from a 60-degree arc of it, 0.941 / 0.935 from this
+# sweep (PERF.md section 6).
+SENS_SWEEP = 1.0
+# Raw label ids: cone c of class_cones is raw id SENS_RAW[c], above 255 as
+# most of ScanNet's are. The TSV maps the cones but SENS_UNMAPPED to the
+# classes of the port's ScanNet-20 label set (19 names) in order; that
+# cone's raw id and raw 0 (unannotated, where no Gaussian covers a pixel)
+# are unmapped and read as unlabeled.
+SENS_RAW = tuple(300 + 41 * c for c in range(20))
+SENS_UNMAPPED = 7
+SCANNET_VISITED_FLOOR = 0.15  # measured 0.177 on this capture (17,721 of 100,000)
+
+
+def render_full(cam, params, **kw):
+    """render() with a pair budget that holds every pair: at the default
+    budget first, again at tuned_pair_budget of the full count if pairs
+    were dropped. Returns (render's dict, the full pair count)."""
+    from semantic_gaussians_torch.pipelines.train import tuned_pair_budget
+    from semantic_gaussians_torch.renderer import render
+
+    import torch
+
+    with torch.no_grad():
+        out = render(cam, params, **kw)
+        total = int(out["num_pairs"]) + int(out["overflow"])
+        if int(out["overflow"]):
+            out = render(cam, params, pair_budget=tuned_pair_budget(total), **kw)
+    return out, total
+
+
+def sens_rig():
+    """The capture's rig: a handheld sweep of SENS_FRAMES frames, the sensor
+    on a circle of radius SENS_SWEEP (SENS_SWEEP x 0.6 vertically) around
+    the first ring camera's position, (0, 0.9, -2), where class_cones cut
+    the classes from, each frame facing the target's centre (0, 0, 4). The
+    poses are OpenCV camera-to-world (x right, y down, z forward), as
+    ScanNet stores them. The fov is phase 7's (vertical 1.1 rad) at the
+    colour camera's aspect, and the depth camera takes the same fov:
+    `fusion.depth: image` only resizes the depth PNG onto the colour grid,
+    as the reference does, so a fov of its own would put that method's
+    error into the fused set. Returns (poses, fov_x, fov_y, {camera: 4x4
+    intrinsic with the principal point at the image centre})."""
+    import math
+
+    import numpy as np
+
+    centre = np.array([0.0, 0.0, 4.0])
+    poses = []
+    for i in range(SENS_FRAMES):
+        th = 2 * np.pi * i / SENS_FRAMES
+        pos = np.array([SENS_SWEEP * np.cos(th), 0.15 * TRAIN_RADIUS
+                        + 0.6 * SENS_SWEEP * np.sin(th), -2.0])
+        fwd = (centre - pos) / np.linalg.norm(centre - pos)
+        right = np.cross(np.array([0.0, 1.0, 0.0]), fwd)
+        right /= np.linalg.norm(right)
+        c2w = np.eye(4)
+        c2w[:3, :3] = np.stack([right, np.cross(fwd, right), fwd], axis=1)
+        c2w[:3, 3] = pos
+        poses.append(c2w)
+    fov_y = 1.1
+    fov_x = 2 * math.atan(math.tan(fov_y / 2) * SENS_COLOR[0] / SENS_COLOR[1])
+    intrinsics = {}
+    for name, (w, h) in (("color", SENS_COLOR), ("depth", SENS_DEPTH)):
+        k = np.eye(4, dtype=np.float32)
+        k[0, 0], k[1, 1] = w / 2 / math.tan(fov_x / 2), h / 2 / math.tan(fov_y / 2)
+        k[0, 2], k[1, 2] = w / 2, h / 2
+        intrinsics[name] = k
+    return poses, fov_x, fov_y, intrinsics
+
+
+def cone_train_ids():
+    """ScanNet-20 train id of each class cone, -1 for SENS_UNMAPPED."""
+    import numpy as np
+
+    return np.array([-1 if c == SENS_UNMAPPED else c - (c > SENS_UNMAPPED)
+                     for c in range(len(SENS_RAW))])
+
+
+def write_sens(scan, arrays, model, dev):
+    """A ScanNet download of one scene, written as ScanNet ships it:
+    `<scan>/<scene>.sens` (v4: SENS_FRAMES frames of sens_rig's sweep;
+    colour at 1296x968 rendered by the port from the 100k target, JPEG
+    (`color_compression` 2); depth at 640x480 in millimetres (`depth_shift`
+    1000), the median depth of `model` (the near-opaque target the fusion
+    phase fuses onto: the surface a depth sensor sees), 0 where the render's
+    final T > 0.5, as `zlib_ushort` (1); frame SENS_LOST's pose all -inf),
+    `<scan>/<scene>_2d-label-filt.zip` (label-filt/<i>.png for every frame,
+    16-bit at 1296x968: the exported frames' raw ids rendered from the
+    Gaussians' class cones, a constant unannotated image for the others)
+    and the scannetv2-labels TSV beside them. Returns {exported frame:
+    depth [480, 640] uint16}."""
+    import io
+    import struct
+    import zipfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from semantic_gaussians_torch.core.gaussians import params_from_numpy
+    from semantic_gaussians_torch.utils.camera import make_camera
+
+    params, alive, cls = model
+    target = params_from_numpy(arrays, dev)
+    poses, fov_x, fov_y, intr = sens_rig()
+    onehot = torch.eye(len(SENS_RAW) + 1, device=dev)[cls + 1] * alive[:, None]
+    raw_of = np.array(SENS_RAW + (0,), np.uint16)  # the last: no Gaussian (unannotated)
+    scan.mkdir(parents=True)
+    depths = {}
+    blank = io.BytesIO()
+    Image.fromarray(np.zeros(SENS_COLOR[::-1], np.uint16)).save(blank, format="PNG")
+    with open(scan / f"{SCANNET_SCENE}.sens", "wb") as f, zipfile.ZipFile(
+            scan / f"{SCANNET_SCENE}_2d-label-filt.zip", "w") as zf:
+        name = b"StructureSensor"
+        f.write(struct.pack("<IQ", 4, len(name)) + name)
+        for m in (intr["color"], np.eye(4), intr["depth"], np.eye(4)):
+            f.write(np.asarray(m, "<f4").tobytes())
+        f.write(struct.pack("<ii4IfQ", 2, 1, *SENS_COLOR, *SENS_DEPTH, 1000.0, SENS_FRAMES))
+        for i, c2w in enumerate(poses):
+            w2c = np.linalg.inv(c2w)
+            cam_c, cam_d = (make_camera(w2c[:3, :3].T, w2c[:3, 3], fov_x, fov_y, w, h,
+                                        device=dev) for w, h in (SENS_COLOR, SENS_DEPTH))
+            rgb, _ = render_full(cam_c, target, bg=torch.zeros(3, device=dev))
+            rgb = (torch.clamp(rgb["render"], 0, 1) * 255 + 0.5).to(torch.uint8).cpu().numpy()
+            jpg = io.BytesIO()
+            Image.fromarray(rgb).save(jpg, format="JPEG", quality=90)
+            d, _ = render_full(cam_d, params, alive=alive)
+            mm = torch.where(d["final_T"] > 0.5, 0.0, torch.round(d["depth"] * 1000.0))
+            depth = mm.clamp(0, 65535).to(torch.int32).cpu().numpy().astype(np.uint16)
+            payload = zlib.compress(depth.tobytes())
+            pose = np.full((4, 4), -np.inf) if i == SENS_LOST else c2w
+            f.write(np.asarray(pose, "<f4").tobytes() + struct.pack(
+                "<4Q", 33_333 * i, 33_333 * i + 11, len(jpg.getvalue()), len(payload)))
+            f.write(jpg.getvalue() + payload)
+            label = blank
+            if i % SENS_SKIP == 0:
+                depths[i] = depth
+                lab, _ = render_full(cam_c, params, alive=alive, override_color=onehot)
+                ids = torch.argmax(lab["render"], dim=-1)  # 0: no Gaussian; c + 1: cone c
+                raw = raw_of[(ids - 1).remainder(len(SENS_RAW) + 1).cpu().numpy()]
+                label = io.BytesIO()
+                Image.fromarray(raw).save(label, format="PNG")
+            zf.writestr(f"label-filt/{i}.png", label.getvalue())
+    train_id = cone_train_ids()
+    rows = ["id\traw_category\tscannetid\tcocomapid"] + [
+        f"{SENS_RAW[c]}\tcone{c}\t{t}\t{t}" for c, t in enumerate(train_id) if t >= 0]
+    (scan / "scannetv2-labels.modified.tsv").write_text("\n".join(rows) + "\n")
+    return depths
+
+
+def scannet_phase(tmpdir, arrays, fused, dev, card):
+    """Phase 18: the ScanNet path at ScanNet's widths, its launches counted
+    from 0 over each CLI run: write_sens's download; (a) the port's
+    `.sens` reader at its defaults (24 frames at 648x484); (b) the port's
+    label-filt extractor (24 labels of the zip's 120); (c) the train CLI on
+    the export, 100 steps from the loader's own random init (no
+    points3d.ply), with phase 7's checks and its graphed step timed, and
+    kernels 1-5 held against their plain versions on its first training
+    view at the initial state; (d) the fusion CLI
+    with `fusion.depth=image` on the near-opaque target (the fusion
+    phase's model) from 648x484x768 float16 maps of the ScanNet-20 palette,
+    chunked and view by view (.pt bit for bit), then with `depth=render`
+    (Jaccard of the visited sets); (e) the eval CLI in mode 2d with
+    `scene.dataset_name=scannet20` against label-filt through the TSV, at
+    C = K + 1 and 768. Returns the launches and the steps' walls."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from semantic_gaussians_torch.cli import eval_segmentation as eval_cli
+    from semantic_gaussians_torch.cli import fusion as fusion_cli
+    from semantic_gaussians_torch.cli import train as train_cli
+    from semantic_gaussians_torch.config.config import default_config_dir
+    from semantic_gaussians_torch.data.scannet_constants import SCANNET20_CLASS_LABELS
+    from semantic_gaussians_torch.io.scene import load_scene, realize_camera
+    from semantic_gaussians_torch.models.predictors import RandomFeatureProvider
+    from semantic_gaussians_torch.pipelines.eval_segmentation import text_feature_matrix
+    from semantic_gaussians_torch.pipelines.fusion import load_fused_features
+    from semantic_gaussians_torch.pipelines.train import (
+        TrainConfig, init_train_state, tuned_pair_budget,
+    )
+    from semantic_gaussians_torch.renderer import render_chn
+    from semantic_gaussians_torch.tools import scannet_sens_reader, unzip_label_filt
+    from semantic_gaussians_torch.utils.losses import psnr
+
+    t_phase = time.perf_counter()
+    params, alive, cls = fused["state"][:3]
+    n = len(arrays["means"])
+    walls, launches = {}, {}
+    device = ["--device", dev.type]
+
+    def counted(name, run, must):
+        out, got = count_launches(f"scannet {name}", run, must)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, got
+
+    # -- the download
+    t0 = time.perf_counter()
+    scans, export = tmpdir / "scans", tmpdir / "scannet" / SCANNET_SCENE
+    depths = write_sens(scans / SCANNET_SCENE, arrays, (params, alive, cls), dev)
+    walls["capture"] = time.perf_counter() - t0
+    size_mb = (scans / SCANNET_SCENE / f"{SCANNET_SCENE}.sens").stat().st_size / 2**20
+    print(f"scannet capture: {SENS_FRAMES} frames, colour {SENS_COLOR}, depth {SENS_DEPTH}, "
+          f".sens {size_mb:.1f} MiB, label zip + TSV, in {walls['capture']:.1f} s")
+
+    # -- (a) export
+    t0 = time.perf_counter()
+    sens = scannet_sens_reader.main(["--input_path", str(scans / SCANNET_SCENE),
+                                     "--output_path", str(export)])
+    walls["export"] = time.perf_counter() - t0
+    frames = list(range(0, SENS_FRAMES, SENS_SKIP))
+    for sub, ext in (("color", "jpg"), ("depth", "png"), ("pose", "txt")):
+        names = sorted(p.name for p in (export / sub).iterdir())
+        if names != sorted(f"{i}.{ext}" for i in frames):
+            fail(f"scannet export: {sub}/ holds {len(names)} files, not frames {frames}")
+    for i in frames:
+        jpg, png = Image.open(export / "color" / f"{i}.jpg"), Image.open(export / "depth" / f"{i}.png")
+        if jpg.size != (FUSE_W, FUSE_H) or png.size != (FUSE_W, FUSE_H) or png.mode != "I;16":
+            fail(f"scannet export frame {i}: colour {jpg.size}, depth {png.size} {png.mode}")
+        want = np.asarray(Image.fromarray(depths[i].astype(np.int32)).resize(
+            (FUSE_W, FUSE_H), Image.NEAREST)).astype(np.uint16)
+        if not np.array_equal(np.asarray(png), want):
+            fail(f"scannet export: depth/{i}.png is not the capture's depth resized")
+    print(f"(a) export: {len(sens.frames)} frames read, {len(frames)} exported at "
+          f"{FUSE_W}x{FUSE_H} (16-bit depth equal to the capture's, resized with nearest) in "
+          f"{walls['export']:.1f} s")
+
+    # -- (b) labels
+    t0 = time.perf_counter()
+    extracted = unzip_label_filt.main(["--label_root", str(scans),
+                                       "--extract_root", str(export.parent)])
+    shutil.copy(scans / SCANNET_SCENE / "scannetv2-labels.modified.tsv", export)
+    walls["labels"] = time.perf_counter() - t0
+    labels = sorted(p.name for p in (export / "label-filt").iterdir())
+    if extracted != {SCANNET_SCENE: len(frames)} or labels != sorted(f"{i}.png" for i in frames):
+        fail(f"scannet labels: extracted {extracted}, label-filt/ holds {len(labels)}")
+    print(f"(b) labels: {len(labels)} label PNGs of the zip's {SENS_FRAMES} in "
+          f"{walls['labels']:.2f} s")
+
+    # -- (c) training
+    t0 = time.perf_counter()
+    if (export / "points3d.ply").exists():
+        fail("the export holds a points3d.ply: the loader's random init would not run")
+    yaml = default_config_dir() / "official_train.yaml"
+    summary, train_launches = counted("train", lambda: train_cli.main([
+        str(yaml), f"scene.scene_path={export}", f"train.out_dir={tmpdir / 'scannet_train'}",
+        f"train.iterations={TRAIN_ITERS}", f"train.test_iterations=[0,{TRAIN_ITERS}]",
+        "train.save_iterations=[]", "train.densify_from_iter=20",
+        "train.densification_interval=20", f"train.densify_until_iter={TRAIN_ITERS}",
+        "train.random_background=false", *device]),
+        ("expand", "composite_fwd", "composite_bwd", "segsum"))
+    train_s = time.perf_counter() - t0
+    log = summary["logs"][0]
+    if not torch.isfinite(log["loss"]).all():
+        fail("scannet training: a loss is not finite")
+    if not log["densify"] or all(a == n for _, a, _ in log["densify"]):
+        fail(f"scannet training: densify did not change the alive count: {log['densify']}")
+    if int(log["overflow"][-1]) != 0:
+        fail(f"scannet training: the last step overflowed its budget {log['budget'][-1]}")
+    info, cam0, params0, alive0 = training_view(export, dev)
+    cams = [cam0] + [realize_camera(c, device=dev) for c in info.train_cameras[1:8]]
+    bg = torch.zeros(3, device=dev)
+
+    def view_psnr(p, a):
+        outs = [render_full(c, p, alive=a, bg=bg) for c in cams]
+        return float(np.mean([float(psnr(o["render"], c.image)) for (o, _), c in
+                              zip(outs, cams)])), outs[0][1]
+
+    (psnr0, pairs0), (psnr1, _) = view_psnr(params0, alive0), view_psnr(
+        summary["state"].params, summary["state"].alive)
+    if not psnr1 >= psnr0 + 1.0:
+        fail(f"scannet training: train-view PSNR rose {psnr1 - psnr0:.3f} dB, less than 1 dB")
+    errs = check_path_kernels("scannet training view", params0, alive0, cam0,
+                              tuned_pair_budget(pairs0), {3: None}, backward=True)
+    graphed = time_graphed_training(
+        export, TrainConfig(spatial_lr_scale=float(info.nerf_normalization["radius"])),
+        max(log["budget"]), dev)
+    walls["train"] = time.perf_counter() - t0
+    (_, test0), (_, test1) = summary["tests"][0], summary["tests"][TRAIN_ITERS]
+    print(f"(c) training: {len(info.train_cameras)} train / {len(info.test_cameras)} test "
+          f"cameras (frame {SENS_LOST} skipped), init {len(info.points)} random points; "
+          f"{TRAIN_ITERS} steps through the train CLI in {train_s:.1f} s; train-view PSNR "
+          f"{psnr0:.3f} -> {psnr1:.3f} dB (held-out {test0:.3f} -> {test1:.3f}); densify "
+          f"{log['densify']}; budgets {sorted(set(log['budget']))}; first training view "
+          f"{pairs0} pairs at {cam0.width}x{cam0.height}; graphed step "
+          f"{graphed['step_ms']:.3f} ms; launches {train_launches}; {walls['train']:.1f} s")
+
+    # -- (d) fusion
+    t0 = time.perf_counter()
+    text = text_feature_matrix(RandomFeatureProvider(FEAT_DIM), SCANNET20_CLASS_LABELS)
+    train_id = torch.from_numpy(cone_train_ids()).to(dev)[cls]
+    palette = (torch.from_numpy(text).to(dev)[train_id + 1] * alive[:, None]).contiguous()
+    infos = load_scene(export, eval_split=False).train_cameras
+    feature_dir, out = tmpdir / "scannet_feats", tmpdir / "scannet_fused"
+    feature_dir.mkdir()
+    fused_views = infos[::5]  # the YAML's every_k_views
+    with torch.no_grad():
+        for ci in fused_views:
+            cam = realize_camera(ci, with_image=False).resized(FUSE_W, FUSE_H).to(dev)
+            fmap = render_chn(cam, params, palette, alive=alive)["render"]
+            np.save(feature_dir / f"{ci.image_name}.npy", fmap.to(torch.float16).cpu().numpy())
+    del fmap
+    maps_s = time.perf_counter() - t0
+    base = [str(default_config_dir() / "fusion_scannet.yaml"), f"scene.scene_path={export}",
+            f"model.model_dir={fused['model_dir']}", "fusion.model_2d=precomputed",
+            f"fusion.feature_dir={feature_dir}", f"fusion.embedding_dim={FEAT_DIM}",
+            "fusion.feat_dtype=float16", f"fusion.visibility_threshold={VISIBILITY}", *device]
+    runs = {}
+    for name, extra, must in (
+            ("image", ["fusion.depth=image", "fusion.chunk_views=4"], ()),
+            ("image_per_view", ["fusion.depth=image", "fusion.chunk_views=1"], ()),
+            ("render", ["fusion.depth=render", "fusion.chunk_views=4"],
+             ("expand", "composite_fwd"))):
+        t1 = time.perf_counter()
+        res, got = counted(f"fusion {name}", lambda extra=extra, name=name: fusion_cli.main(
+            base + extra + [f"fusion.out_dir={out / name}"]), must)
+        runs[name] = dict(summary=res, launches=got, s=time.perf_counter() - t1)
+    if runs["image"]["launches"]["expand"] or runs["image"]["summary"]["views"] != 5:
+        fail(f"scannet fusion depth=image: {runs['image']}")
+    renders = fusion_depth_renders(len(fused_views), FEAT_DIM)
+    if runs["render"]["launches"]["expand"] != renders:
+        fail(f"scannet fusion depth=render launched expand "
+             f"{runs['render']['launches']['expand']} times for {renders} depth renders")
+    got, want = (torch.load(runs[k]["summary"]["out_path"], weights_only=True)
+                 for k in ("image", "image_per_view"))
+    if not (torch.equal(got["feat"], want["feat"])
+            and torch.equal(got["mask_full"], want["mask_full"])):
+        fail("scannet fusion depth=image: the chunked CLI's .pt differs from the per-view one")
+    feats, visited = load_fused_features(runs["image"]["summary"]["out_path"],
+                                         capacity=params.capacity, device=dev)
+    _, visited_render = load_fused_features(runs["render"]["summary"]["out_path"],
+                                            capacity=params.capacity, device=dev)
+    share = int(visited.sum()) / n
+    cos = torch.nn.functional.cosine_similarity(feats[visited], palette[visited], dim=-1)
+    jaccard = int((visited & visited_render).sum()) / max(int((visited | visited_render).sum()), 1)
+    walls["fusion"] = time.perf_counter() - t0
+    print(f"(d) fusion: {len(fused_views)} views, depth=image chunked {runs['image']['s']:.1f} s "
+          f"/ view by view {runs['image_per_view']['s']:.1f} s (.pt bit for bit), depth=render "
+          f"{runs['render']['s']:.1f} s; visited {int(visited.sum())} of {n} (share "
+          f"{share:.4f}), mean cosine {float(cos.mean()):.4f}; Jaccard with depth=render "
+          f"{jaccard:.4f} ({int(visited_render.sum())} visited); maps {maps_s:.1f} s; "
+          f"{walls['fusion']:.1f} s")
+    if share < SCANNET_VISITED_FLOOR:
+        fail(f"scannet fusion: visited share {share:.4f} below {SCANNET_VISITED_FLOOR}")
+    if not torch.isfinite(feats).all() or float(cos.mean()) < 0.9:
+        fail(f"scannet fusion: mean cosine against the palette {float(cos.mean()):.4f} < 0.9")
+    if jaccard < 0.9:
+        fail(f"scannet fusion: Jaccard of depth=image and depth=render {jaccard:.4f} < 0.9")
+    for p in feature_dir.iterdir():
+        p.unlink()
+
+    # -- (e) evaluation
+    t0 = time.perf_counter()
+    k = len(SCANNET20_CLASS_LABELS)
+    ev = [str(default_config_dir() / "eval.yaml"), f"scene.scene_path={export}",
+          f"model.model_dir={fused['model_dir']}", f"fusion.out_dir={out / 'image'}",
+          f"fusion.embedding_dim={FEAT_DIM}", "scene.dataset_name=scannet20",
+          "eval.eval_mode=2d", f"eval.width={FUSE_W}", f"eval.height={FUSE_H}",
+          f"eval.log_file={tmpdir / 'scannet_eval.log'}", *device]
+    results, eval_launches = counted("eval", lambda: {
+        p3: eval_cli.main(ev + [f"eval.pred_on_3d={p3}"]) for p3 in ("true", "false")},
+        ("expand", "composite_fwd"))
+    lut = {SENS_RAW[c]: t for c, t in enumerate(cone_train_ids()) if t >= 0}
+    evaluated = [ci.image_name for ci in infos[::10]]
+    counts = np.zeros(k, np.int64)
+    for name in evaluated:
+        raw = np.asarray(Image.open(export / "label-filt" / f"{name}.png").resize(
+            (FUSE_W, FUSE_H), Image.NEAREST)).astype(np.int64)
+        gt = np.array([lut.get(int(r), k) for r in range(int(raw.max()) + 1)])[raw]
+        counts += np.bincount(gt.ravel(), minlength=k + 1)[:k]
+    walls["eval"] = time.perf_counter() - t0
+    miou = {p3: r[0] for p3, r in results.items()}
+    print(f"(e) evaluation: {len(evaluated)} views (frames {evaluated}), mode 2d, scannet20 "
+          f"(K = {k}): mIoU C={k + 1} {miou['true']:.4f}, C={FEAT_DIM} {miou['false']:.4f}; "
+          f"{int(counts.sum())} labelled pixels; launches {eval_launches}; "
+          f"{walls['eval']:.1f} s")
+    if eval_launches["expand"] != 2 * len(evaluated):
+        fail(f"scannet eval launched expand {eval_launches['expand']} times for "
+             f"2 x {len(evaluated)} views")
+    for p3, (m, _, conf) in results.items():
+        if not m >= 0.9:
+            fail(f"scannet eval pred_on_3d={p3}: mIoU {m:.4f} < 0.9")
+        if not np.array_equal(conf.sum(axis=1), counts):
+            fail(f"scannet eval pred_on_3d={p3}: confusion row sums {conf.sum(axis=1)} are not "
+                 f"the ground truth's class counts {counts}")
+    wall = time.perf_counter() - t_phase
+    print(json.dumps({"card": card, "scannet": dict(
+        wall_s=wall, walls_s=walls, launches=launches, kernel_errors=errs,
+        train=dict(cli_s=train_s, psnr=(psnr0, psnr1), held_out_psnr=(test0, test1),
+                   densify=log["densify"], budgets=sorted(set(log["budget"])),
+                   first_view_pairs=pairs0, graphed_step_ms=graphed["step_ms"],
+                   graphed_busy=graphed["profile"]),
+        fusion=dict(visited=int(visited.sum()), share=share, cosine=float(cos.mean()),
+                    jaccard=jaccard, cli_s={k: v["s"] for k, v in runs.items()},
+                    cli_s_per_view={k: v["s"] / len(fused_views) for k, v in runs.items()}),
+        eval=dict(miou=miou, cli_s_per_view=walls["eval"] / (2 * len(evaluated)),
+                  labelled=int(counts.sum())))}, default=str))
+    print(f"phase 18 (scannet): {wall:.1f} s; launches {launches}")
+    errors = {}
+    for what, err in errs.items():
+        kernel = what.split(" ")[0]
+        errors[kernel] = max(errors.get(kernel, 0.0), err)
+    return dict(launches=launches, wall_s=wall, errors=errors)
 
 
 def segsum_replay_only():

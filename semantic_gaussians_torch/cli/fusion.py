@@ -10,6 +10,9 @@ unless the CPU was asked for (`--device cpu` or `fusion.device=cpu`). Loads
 the trained Gaussians from `<model_dir>/point_cloud/iteration_<n>/` (or
 `params.npz` with `model.dynamic`), fuses every k-th training view's
 feature map onto them and writes `<fusion.out_dir>/<scene name>/0.pt`.
+With `fusion.depth: image` the occlusion test reads each view's sensor
+depth, `<scene_path>/depth/<image name>.png` (a ScanNet export), divided by
+`fusion.depth_scale`.
 """
 from __future__ import annotations
 
@@ -45,6 +48,19 @@ def load_model(cfg, device):
     return params_from_numpy(arrays, device), torch.from_numpy(alive).to(device)
 
 
+def sensor_depth_paths(scene_path, cameras) -> list:
+    """`<scene_path>/depth/<image name>.png` for each camera (the layout
+    tools/scannet_sens_reader.py exports), for `fusion.depth: image`.
+    Raises a ValueError naming the first PNG that is missing, before any
+    view is fused."""
+    paths = [pathlib.Path(scene_path) / "depth" / f"{c.image_name}.png" for c in cameras]
+    missing = next((p for p in paths if not p.is_file()), None)
+    if missing is not None:
+        raise ValueError(f"fusion.depth=image needs a sensor depth PNG per training view; "
+                         f"{missing} does not exist")
+    return [str(p) for p in paths]
+
+
 def main(argv=None) -> dict:
     """Fuse as configured. Returns a summary: the visited count, the output
     path, the number of views fused and the device."""
@@ -66,6 +82,9 @@ def main(argv=None) -> dict:
     )
     cameras = [realize_camera(c, with_image=False) for c in scene.train_cameras]
     image_paths = [c.image_path for c in scene.train_cameras]
+    depth_paths = None
+    if f.get("depth", "render") == "image":
+        depth_paths = sensor_depth_paths(cfg.scene.scene_path, scene.train_cameras)
     params, alive = load_model(cfg, device)
     provider = make_predictor(f.get("model_2d", "precomputed"), f, device)
     fcfg = FusionConfig(
@@ -80,7 +99,7 @@ def main(argv=None) -> dict:
     )
     feats, visited = fuse_scene(
         params, alive, cameras, provider, fcfg, image_paths=image_paths,
-        backend=(cfg.get("pipeline") or {}).get("backend", "tiled"),
+        depth_paths=depth_paths, backend=(cfg.get("pipeline") or {}).get("backend", "tiled"),
     )
     scene_name = pathlib.Path(cfg.scene.scene_path).name
     out = pathlib.Path(f.out_dir) / scene_name / "0.pt"

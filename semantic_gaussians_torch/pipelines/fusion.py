@@ -295,7 +295,8 @@ def fuse_scene(
     """Fuse features over every k-th view, on the device that holds
     `params`. Returns (features [cap, C] float32 averaged, visited [cap]
     bool). Views go in chunks of `cfg.chunk_views` (see the module
-    docstring)."""
+    docstring). Depth mode 'image' reads `depth_paths`, one depth PNG a
+    camera, and raises a ValueError without them."""
     from .train import camera_statics, stack_camera_chunk
 
     dev = params.device
@@ -306,6 +307,8 @@ def fuse_scene(
     depth_mode = cfg.depth if cfg.depth not in (None, "None") else "none"
     if depth_mode not in DEPTH_MODES:
         raise ValueError(f"unknown depth mode {cfg.depth!r}")
+    if depth_mode == "image" and depth_paths is None:
+        raise ValueError("depth mode 'image' needs depth_paths, one depth PNG per camera")
     staging: list = []
 
     def load_feat(vi):

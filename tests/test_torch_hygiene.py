@@ -18,6 +18,8 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "semantic_gaussians_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "semantic_gaussians_tpu",
+             # the repo's root tools: the port keeps its own copies
+             "tools",
              # absent where the port runs
              "transformers", "regex", "ftfy", "torchvision", "timm", "safetensors",
              "segment_anything", "clip")
