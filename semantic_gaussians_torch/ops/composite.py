@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import tracing
 from . import kernels
 
 ALPHA_CUTOFF = 1.0 / 255.0
@@ -405,6 +406,7 @@ class CompositeFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_color, _g_depth, _g_final_t, _g_n_contrib):
+        tracing.phase("composite_bwd", g_color.device)
         geom, colors, bg, pair_gaussian, tile_start, tile_count, final_t, n_contrib = (
             ctx.saved_tensors
         )
@@ -413,7 +415,8 @@ class CompositeFunction(torch.autograd.Function):
             geom, colors, pair_gaussian, tile_start, tile_count, bg, g_color, final_t,
             n_contrib, *ctx.frame,
         )
-        d_geom, d_colors = ctx.to_gaussians(rows)
         # bg enters only as out = C + T bg.
         d_bg = torch.einsum("tp,tcp->c", final_t, g_color)
+        d_geom, d_colors = ctx.to_gaussians(rows)
+        tracing.phase("project_bwd", g_color.device)
         return d_geom, d_colors, d_bg, None, None, None, None, None, None, None

@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import tracing
 from .binning import TileBinning, bin_gaussians, default_pair_budget
 from .composite import GEOM_COLS, GRAD_GEOM_COLS, CompositeFunction, pack_geometry
 from .composite_ref import rasterize_dense
@@ -66,6 +67,7 @@ def pair_grads_to_gaussians(rows: torch.Tensor, binning: TileBinning):
     4. gather the sums back to original ids through `orig_to_dense`;
        Gaussians without pairs (the sentinel) get exactly zero.
     The permutation and masking are plain torch, in place on one copy."""
+    tracing.phase("segsum", rows.device)
     n = binning.orig_to_dense.shape[0]
     gen = generation_rows(rows, binning)
     dense = segsum_contiguous(gen, binning.gen_owner, n + 1, limit=binning.num_pairs)
@@ -107,12 +109,14 @@ def rasterize(
     grid = (-(-img_height // th), -(-img_width // tw))
     n = proj.means2d.shape[0]
     budget = pair_budget or default_pair_budget(n)
+    tracing.phase("bin", bg.device)
     binning = bin_gaussians(
         proj.means2d, proj.depths, proj.radii_xy, tile_shape, grid, budget,
         cull_ellipse=proj.cull_ellipse,
     )
     geom = pack_geometry(proj.means2d, proj.conics, proj.opacities, proj.depths)
     colors = proj.colors.to(torch.float32).contiguous()
+    tracing.phase("composite", bg.device)
     color, depth, final_t, n_contrib = CompositeFunction.apply(
         geom, colors, bg, binning.pair_gaussian, binning.tile_start,
         binning.tile_count, grid[1], th, tw,

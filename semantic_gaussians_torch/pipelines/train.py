@@ -34,10 +34,11 @@ from ..core.gaussians import FIELDS, GaussianParams, num_alive
 from ..core.optimizer import AdamState, TrainHyper, adam_init, adam_update, lr_tree
 from ..ops.binning import default_pair_budget
 from ..renderer import render
+from ..utils import tracing
 from ..utils.camera import Camera
 from ..utils.graphs import GraphRunner
 from ..utils.losses import photometric_loss, psnr
-from ..utils.logging_utils import StepTimer, TBLogger
+from ..utils.logging_utils import ChunkClock, TBLogger
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +136,7 @@ def train_step(
     """One optimization step. Returns (new_state, metrics dict of device
     scalars: loss, psnr, num_points, overflow, num_pairs)."""
     params = state.params
+    tracing.phase("project", params.device)
     leaves = {f: getattr(params, f).detach().requires_grad_(True) for f in FIELDS}
     offset = torch.zeros((params.capacity, 2), dtype=torch.float32, device=params.device,
                          requires_grad=True)
@@ -149,8 +151,11 @@ def train_step(
         ch, cw = crop
         pred = pred[ch:camera.height - ch, cw:camera.width - cw]
         gt = gt[ch:camera.height - ch, cw:camera.width - cw]
+    tracing.phase("loss", params.device)
     loss = photometric_loss(pred, gt, cfg.lambda_dssim)
+    tracing.phase("loss_bwd", params.device)
     grads = torch.autograd.grad(loss, [leaves[f] for f in FIELDS] + [offset])
+    tracing.phase("update", params.device)
     gparams = GaussianParams(**dict(zip(FIELDS, grads[:-1])))
     dstate = add_stats(state.dstate, grads[-1], out["radii"], camera.width, camera.height)
     lrs = lr_tree(cfg.hyper, cfg.spatial_lr_scale, state.step)
@@ -347,6 +352,7 @@ def chunk_length(s: int, steps_per_dispatch: int, left: int) -> int:
     return min(n, 1000 * (s // 1000) + 1000 - s)
 
 
+@tracing.spanned("sgt.train_loop")
 def train_loop(
     state: TrainState,
     cameras: list,
@@ -380,7 +386,10 @@ def train_loop(
     cameras whose statics differ, runs train_step step by step. `tb_dir`
     logs the JAX package's TensorBoard scalars every 10 iterations and the
     opacity histogram every 1000 (utils.logging_utils.TBLogger; nothing
-    without tensorboard). `runner` keeps the graphs across calls: a run cut
+    without tensorboard); its `train/iter_time`, and the step time that
+    `log_every` prints, is the newest finished chunk's time a step
+    (utils.logging_utils.ChunkClock: on a CUDA device the device's, read
+    without a wait). `runner` keeps the graphs across calls: a run cut
     into many calls (the parity harness's 50-iteration chunks) passes one
     runner to all of them and captures each set of statics once, as the
     JAX package's jit cache outlives a call; by default every call makes
@@ -402,8 +411,8 @@ def train_loop(
     if adaptive:
         pair_budget = default_pair_budget(state.params.capacity)
     pending_check = None
-    timer = StepTimer()
     tb = TBLogger(tb_dir) if tb_dir else None
+    clock = ChunkClock(dev, on=bool((tb is not None and tb.active) or log_every))
     runner = runner or GraphRunner(dev)
     keys = ("loss", "psnr", "overflow", "num_pairs")
     log = {k: torch.zeros(iters, dtype=torch.float32, device=dev) for k in keys}
@@ -420,80 +429,89 @@ def train_loop(
         s = iter_offset + rel + 1  # the chunk's first global iteration
         n = chunk_length(s, steps_per_dispatch, iters - rel)
         sh_deg = min(cfg.max_sh_degree, s // 1000)
-        cams = [pick_cam() for _ in range(n)]
-        if cfg.random_background:
-            bgs = torch.rand((n, 3), generator=generator, device=dev)
-        else:
-            bgs = bg.expand(n, 3)
-        stack = stack_camera_chunk(cams) if n > 1 else None
-        with timer:
+        with tracing.span("sgt.loop.prep"):
+            cams = [pick_cam() for _ in range(n)]
+            if cfg.random_background:
+                bgs = torch.rand((n, 3), generator=generator, device=dev)
+            else:
+                bgs = bg.expand(n, 3)
+            stack = stack_camera_chunk(cams) if n > 1 else None
+        with clock.chunk(n):
             if stack is not None:
                 state, per = train_scan_step(state, stack, bgs, cfg, sh_deg, backend,
                                              pair_budget, runner)
             else:
-                steps = []
-                for j, cam in enumerate(cams):
-                    state, m = train_step(state, cam, bgs[j], cfg, sh_deg, backend=backend,
-                                          pair_budget=pair_budget)
-                    steps.append(m)
-                per = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
-        step_time = timer.value / n
+                with tracing.span("sgt.train_step.eager"):
+                    steps = []
+                    for j, cam in enumerate(cams):
+                        state, m = train_step(state, cam, bgs[j], cfg, sh_deg, backend=backend,
+                                              pair_budget=pair_budget)
+                        steps.append(m)
+                    per = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+                    tracing.phase("between", dev)
         it = s + n - 1  # the chunk's last global iteration
-        log["budget"] += [pair_budget] * n
-        log["cameras"] += [c.image_name for c in cams]
-        log["chunks"].append((s, n))
-        for k in keys:
-            log[k][rel:rel + n] = per[k]
+        with tracing.span("sgt.loop.log"):
+            log["budget"] += [pair_budget] * n
+            log["cameras"] += [c.image_name for c in cams]
+            log["chunks"].append((s, n))
+            for k in keys:
+                log[k][rel:rel + n] = per[k]
         if adaptive and it % 10 == 0:
-            skip_record = False
-            if pending_check is not None:
-                ov, pairs, chk_it = pending_check
-                if int(ov) > 0:
-                    pair_budget *= 2
-                    # this chunk ran under the old budget: wait for one that
-                    # ran under the new one before judging again
-                    skip_record = True
-                elif chk_it % 50 == 0:
-                    want = tuned_pair_budget(int(pairs))
-                    if want > pair_budget or want < pair_budget * 2 // 3:
-                        pair_budget = want
-            pending_check = None if skip_record else (
-                per["overflow"].max(), per["num_pairs"].max(), it)
+            with tracing.span("sgt.loop.budget"):
+                skip_record = False
+                if pending_check is not None:
+                    ov, pairs, chk_it = pending_check
+                    if int(ov) > 0:
+                        pair_budget *= 2
+                        # this chunk ran under the old budget: wait for one
+                        # that ran under the new one before judging again
+                        skip_record = True
+                    elif chk_it % 50 == 0:
+                        want = tuned_pair_budget(int(pairs))
+                        if want > pair_budget or want < pair_budget * 2 // 3:
+                            pair_budget = want
+                pending_check = None if skip_record else (
+                    per["overflow"].max(), per["num_pairs"].max(), it)
         if tb is not None and tb.active and it % 10 == 0:
-            tb.scalar("train/loss", per["loss"][-1], it)
-            tb.scalar("train/psnr", per["psnr"][-1], it)
-            tb.scalar("train/total_points", per["num_points"][-1], it)
-            tb.scalar("train/iter_time", step_time, it)
-            tb.scalar("train/pair_overflow", per["overflow"].max(), it)
-            if it % 1000 == 0:
-                tb.histogram("scene/opacity_histogram",
-                             state.params.opacity[state.alive].cpu().numpy(), it)
+            with tracing.span("sgt.loop.log"):
+                tb.scalar("train/loss", per["loss"][-1], it)
+                tb.scalar("train/psnr", per["psnr"][-1], it)
+                tb.scalar("train/total_points", per["num_points"][-1], it)
+                tb.scalar("train/iter_time", clock.read(), it)
+                tb.scalar("train/pair_overflow", per["overflow"].max(), it)
+                if it % 1000 == 0:
+                    tb.histogram("scene/opacity_histogram",
+                                 state.params.opacity[state.alive].cpu().numpy(), it)
         if it < cfg.densify_until_iter:
             if it > cfg.densify_from_iter and it % cfg.densification_interval == 0:
-                state, dropped = densify_step(
-                    state, scene_extent, cfg,
-                    use_screen_size=it > cfg.opacity_reset_interval, generator=generator,
-                )
-                alive_n = int(num_alive(state.alive))
-                log["densify"].append((it, alive_n, int(dropped)))
-                if alive_n > 0.85 * state.params.capacity:
-                    state = grow_capacity(state)
-                    cap = state.params.capacity
-                    runner.drop(lambda key: key[0] == "train" and key[-1] != cap)
+                with tracing.span("sgt.loop.densify"):
+                    state, dropped = densify_step(
+                        state, scene_extent, cfg,
+                        use_screen_size=it > cfg.opacity_reset_interval, generator=generator,
+                    )
+                    alive_n = int(num_alive(state.alive))
+                    log["densify"].append((it, alive_n, int(dropped)))
+                    if alive_n > 0.85 * state.params.capacity:
+                        state = grow_capacity(state)
+                        cap = state.params.capacity
+                        runner.drop(lambda key: key[0] == "train" and key[-1] != cap)
             if it % cfg.opacity_reset_interval == 0 or (
                 cfg.white_background and it == cfg.densify_from_iter
             ):
-                state = opacity_reset_step(state)
+                with tracing.span("sgt.loop.densify"):
+                    state = opacity_reset_step(state)
         if min(cfg.max_sh_degree, (it + 1) // 1000) > sh_deg:
             runner.drop(lambda key: key[0] == "train" and key[2] <= sh_deg)
         if log_every:
-            for j in range(n):
-                itj = s + j
-                if itj % log_every == 0:
-                    mf = {k: float(v[j]) for k, v in per.items()}
-                    log["history"].append((itj, mf))
-                    print(f"iter {itj}: loss {mf['loss']:.4f} psnr {mf['psnr']:.2f} "
-                          f"pts {int(mf['num_points'])} step {step_time * 1e3:.1f} ms (host)")
+            with tracing.span("sgt.loop.log"):
+                for j in range(n):
+                    itj = s + j
+                    if itj % log_every == 0:
+                        mf = {k: float(v[j]) for k, v in per.items()}
+                        log["history"].append((itj, mf))
+                        print(f"iter {itj}: loss {mf['loss']:.4f} psnr {mf['psnr']:.2f} "
+                              f"pts {int(mf['num_points'])} "
+                              f"step {clock.read() * 1e3:.1f} ms ({clock.source})")
         rel += n
     if tb is not None:
         tb.close()

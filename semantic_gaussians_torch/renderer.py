@@ -15,6 +15,7 @@ import torch
 from .core.gaussians import GaussianParams
 from .ops.projection import project_gaussians
 from .ops.rasterize import DEFAULT_TILE, rasterize
+from .utils import tracing
 from .utils.camera import Camera
 from .utils.transforms import build_covariance_3d, strip_symmetric
 
@@ -44,6 +45,7 @@ def render(
     overflow, num_pairs).
     """
     dev = params.device
+    tracing.phase("project", dev)
     if override_shape is not None:
         camera = camera.resized(override_shape[0], override_shape[1])
     camera = camera.to(dev)

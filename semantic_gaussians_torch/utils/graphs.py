@@ -20,7 +20,10 @@ new carry into the carry's buffers, and replays it. Later calls copy their
 carry (where it is not already the buffers) and inputs into the buffers and
 replay. The carry returned is the buffers themselves: hand it back to the
 next call and nothing is copied; it is overwritten by the next replay of
-that key's graph. Outputs are cloned out of the graph's pool.
+that key's graph. Outputs are cloned out of the graph's pool. The body's
+end is marked for a profiler's trace (utils.tracing): phase `carry`
+before the carry's copy, `between` after it, captured into the graph so
+that every replay shows where its dispatch ends.
 
 A capture that fails raises; the runner never runs the body eagerly on a
 CUDA device instead. On any other device it calls the body eagerly, step
@@ -39,6 +42,7 @@ from typing import Callable, Dict, Hashable, List, Sequence, Tuple, Union
 import torch
 
 from ..ops import kernels
+from . import tracing
 
 Tensors = Dict[str, torch.Tensor]
 # An input is a tensor [K, ...], or K tensors, one a slot of the chunk.
@@ -105,21 +109,27 @@ class GraphRunner:
         """body(carry, inputs) -> (new carry, outputs); see the module
         docstring for what a CUDA device does with it."""
         if self.device.type != "cuda":
-            return body(carry, {k: _stacked(v) for k, v in inputs.items()})
+            out = body(carry, {k: _stacked(v) for k, v in inputs.items()})
+            tracing.phase("carry", self.device)
+            tracing.phase("between", self.device)
+            return out
         key = (key, _signature(carry), _signature(inputs))
         entry = self._graphs.get(key)
         if entry is None:
-            entry = self._graphs[key] = self._capture(body, carry, inputs)
+            with tracing.span("sgt.graph.capture"):
+                entry = self._graphs[key] = self._capture(body, carry, inputs)
         else:
-            for k, v in carry.items():
-                _fill(entry.carry[k], v)
-            for k, v in inputs.items():
-                _fill(entry.inputs[k], v)
-        entry.graph.replay()
-        self.replays += 1
-        for counter, gain in entry.gains:
-            counter.add_gain(gain)
-        return dict(entry.carry), {k: v.clone() for k, v in entry.outputs.items()}
+            with tracing.span("sgt.graph.fill"):
+                for k, v in carry.items():
+                    _fill(entry.carry[k], v)
+                for k, v in inputs.items():
+                    _fill(entry.inputs[k], v)
+        with tracing.span("sgt.graph.replay"):
+            entry.graph.replay()
+            self.replays += 1
+            for counter, gain in entry.gains:
+                counter.add_gain(gain)
+            return dict(entry.carry), {k: v.clone() for k, v in entry.outputs.items()}
 
     def _capture(self, body: Body, carry: Tensors, inputs: Inputs) -> _Captured:
         dev = self.device
@@ -140,8 +150,10 @@ class GraphRunner:
         before = [(c, c.snapshot()) for c in kernels.COUNTERS]
         with torch.cuda.graph(graph):
             new_carry, outputs = body(static_carry, static_in)
+            tracing.phase("carry", dev)
             for k, v in new_carry.items():
                 static_carry[k].copy_(v)
+            tracing.phase("between", dev)
         gains = []
         for counter, snap in before:
             gain = counter.since(snap)

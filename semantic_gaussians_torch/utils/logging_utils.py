@@ -1,7 +1,8 @@
 """Step timing, TensorBoard logging and device traces.
 
-Port of semantic_gaussians_tpu.utils.logging_utils: StepTimer, TBLogger,
-and the profiler helpers on torch.profiler (`profile_trace` writes a
+Port of semantic_gaussians_tpu.utils.logging_utils: TBLogger, a chunk's
+time a step (ChunkClock, in place of the JAX package's host-clock
+StepTimer), and the profiler helpers on torch.profiler (`profile_trace` writes a
 Chrome trace, `top_ops` ranks its events by time a step).
 """
 from __future__ import annotations
@@ -11,7 +12,7 @@ import gzip
 import json
 import time
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -52,25 +53,43 @@ class TBLogger:
             self.writer.close()
 
 
-class StepTimer:
-    """EMA of per-step wall time, in seconds (host clock: on the card it
-    measures enqueue time unless the timed block synchronizes)."""
+class ChunkClock:
+    """Seconds a step of a dispatched chunk. On a CUDA device the device's
+    wall: two events recorded on the stream around the chunk's dispatch,
+    read once the end event has completed (queried, never waited on), so
+    that `read()` gives the newest chunk the device has finished. Elsewhere
+    the host's clock around the chunk. With `on` false, `chunk()` records
+    nothing."""
 
-    def __init__(self, ema: float = 0.6):
-        self.ema = ema
-        self.value: Optional[float] = None
-        self._t0: Optional[float] = None
+    def __init__(self, device, on: bool = True):
+        self.on = on
+        self.source = "device" if device.type == "cuda" else "host"
+        self.value = float("nan")
+        self._open: List[Tuple] = []  # (start event, end event, steps), oldest first
 
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
+    @contextlib.contextmanager
+    def chunk(self, steps: int):
+        if not self.on:
+            yield
+        elif self.source == "device":
+            import torch
 
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        self.value = dt if self.value is None else (
-            self.ema * self.value + (1 - self.ema) * dt
-        )
-        return False
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            yield
+            end.record()
+            self._open.append((start, end, steps))
+        else:
+            t0 = time.perf_counter()
+            yield
+            self.value = (time.perf_counter() - t0) / steps
+
+    def read(self) -> float:
+        """Seconds a step of the newest finished chunk (NaN before any)."""
+        while self._open and self._open[0][1].query():
+            start, end, steps = self._open.pop(0)
+            self.value = start.elapsed_time(end) / 1e3 / steps
+        return self.value
 
 
 # Chrome-trace categories of the device's own timeline in torch.profiler's
