@@ -210,6 +210,22 @@ version:
      mode 2d at scene.dataset_name=scannet20 against label-filt through the
      TSV at C = K + 1 and 768: mIoU >= 0.9, confusion row sums equal to the
      ground truth's class counts mapped here with numpy.
+ 19. (run after phase 17) the projection kernels (csrc/projection.cu)
+     against the plain version at PROJECTION_CASES: both train cells' main
+     path (1M at 648x484, 5M at 1920x1080, SH degree 3), a C = 768 override
+     colour and world_rotate's cov3d_precomp at 1M, and the other SH layouts
+     at 100k. Forward floats at rtol 1e-5 (atol 1e-6 x the column's largest
+     |value|) widened by twice the plain version's own distance to float64
+     (and the conic's condition), every entry of a drawn Gaussian and all
+     but 1e-5 of the entries of culled ones, radii within 1 on at most
+     1e-4 of the Gaussians; per leaf, over all rows and the drawn ones, the
+     backward's norm-relative gap to float64 autograd of the plain forward
+     at most twice float32 autograd's, its distance to the hand backward at
+     most twice that one's gap, exact zeros where the cotangents are;
+     times of both kernels (device_us) beside their byte bounds and the
+     plain forward and its autograd backward; one forward and one backward
+     launch a step over a 10-step graph replay at 1M.
+     `python3 chip_smoke.py --projection` runs this phase alone.
 Every phase prints its wall time, and a summary line of them precedes the
 kernels line. Every number is stamped with the card's name and power limit.
 
@@ -481,6 +497,10 @@ def main():
     # ---------------------------------------------------------------- 17
     with phase_wall(walls, "17 bench tools"):
         bench_tools = bench_tools_phase(dev, card)
+
+    # ---------------------------------------------------------------- 19
+    with phase_wall(walls, "19 projection"):
+        projection_phase(dev, card)
 
     # ---------------------------------------------------------------- scene
     t_scene = time.perf_counter()
@@ -4638,6 +4658,364 @@ def scannet_phase(tmpdir, arrays, fused, dev, card):
     return dict(launches=launches, wall_s=wall, errors=errors)
 
 
+# ------------------------------------------------------------------ projection
+# (name, Gaussians, width, height, fov_x, fov_y, SH coefficients held,
+# active degree, kind): the two train cells' main path (1M at the ScanNet
+# export's 648x484 and fov, 5M at 1080p), a feature render at C = 768 and
+# the viewer's world_rotate (cov3d_precomp) at 1M, and small cases of the
+# kernel's other SH layouts (degree below the coefficients held; 27 and 75
+# floats a row take the 4-byte staging; 3 floats).
+PROJECTION_CASES = (
+    ("scannet.train", 1_000_000, 648, 484, 1.0110, 0.7848, 16, 3, "sh"),
+    ("garden.train", 5_000_000, 1920, 1080, 1.2, 0.72, 16, 3, "sh"),
+    ("eval C=768", 1_000_000, 648, 484, 1.0110, 0.7848, 0, 3, "override"),
+    ("world_rotate", 1_000_000, 640, 480, 1.1, 0.86, 16, 3, "world_rotate"),
+    ("degree 1 of 3", 100_000, 640, 480, 1.1, 0.86, 16, 1, "sh"),
+    ("K=9 degree 2", 100_000, 640, 480, 1.1, 0.86, 9, 2, "sh"),
+    ("K=25 degree 4", 100_000, 640, 480, 1.1, 0.86, 25, 4, "sh"),
+    ("K=1 degree 0", 100_000, 640, 480, 1.1, 0.86, 1, 0, "sh"),
+)
+PROJECTION_OVERRIDE_C = 768
+PROJECTION_ZERO_ROWS = 0.4  # share of rows whose cotangents are all zero
+
+
+def projection_inputs(case, dev):
+    """One case's leaves (float32 on `dev`, requiring grad), the keyword
+    arguments project_gaussians takes beside them, and its camera: Gaussians
+    around 4 units in front of a slightly turned camera, 5% behind it and 2%
+    dead, random rotations, anisotropic scales and every SH coefficient
+    nonzero."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from semantic_gaussians_torch.utils.camera import make_camera
+    from semantic_gaussians_torch.utils.transforms import build_covariance_3d, strip_symmetric
+
+    name, n, w, h, fov_x, fov_y, k, deg, kind = case
+    rng = np.random.default_rng(SEED + n + k)
+    means = rng.normal(size=(n, 3)) * np.array([2.0, 1.5, 1.5]) + np.array([0.0, 0.0, 4.0])
+    means[: n // 20, 2] = rng.uniform(-2.0, 0.2, size=n // 20)
+    a = 0.2
+    R = np.array([[math.cos(a), 0, math.sin(a)], [0, 1, 0], [-math.sin(a), 0, math.cos(a)]])
+    cam = make_camera(R, np.array([0.1, -0.2, 0.3]), fov_x, fov_y, w, h, device=dev)
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+
+    leaves = dict(means=t(means), scales=t(np.exp(rng.uniform(-5.0, -2.0, size=(n, 3)))),
+                  quats=t(rng.normal(size=(n, 4))),
+                  opacities=t(1.0 / (1.0 + np.exp(-rng.uniform(-3.0, 3.0, size=n)))))
+    kw = dict(sh_degree=deg, alive=t(rng.uniform(size=n)) > 0.02)
+    if kind == "override":
+        leaves["override_color"] = t(rng.uniform(size=(n, PROJECTION_OVERRIDE_C)))
+    else:
+        sh = rng.normal(size=(n, k, 3)) * 0.3
+        sh[:, 0] = rng.normal(size=(n, 3))
+        leaves["sh_coeffs"] = t(sh)
+    if kind == "world_rotate":
+        rot = t(R.T)
+        leaves["means"] = leaves["means"] @ rot
+        cov = build_covariance_3d(leaves.pop("scales") * 0.8, leaves.pop("quats"))
+        leaves["cov3d_precomp"] = strip_symmetric(rot.T @ cov @ rot)
+        kw["scaling_modifier"] = 0.8
+    else:
+        leaves["mean2d_offset"] = torch.zeros((n, 2), device=dev)
+    for v in leaves.values():
+        v.requires_grad_(True)
+    return leaves, kw, cam
+
+
+def projection_call(fn, leaves, kw, cam, dtype=None):
+    """fn (project_gaussians or the plain forward) on the leaves, cast to
+    `dtype` where given; returns (ProjectedGaussians, the leaves used)."""
+    import torch
+
+    from semantic_gaussians_torch.ops.projection import project_forward_plain
+
+    if dtype is not None:
+        leaves = {k: v.detach().to(dtype).requires_grad_(True) for k, v in leaves.items()}
+    wv, fp, cc = (x.to(dtype or torch.float32) for x in (cam.world_view, cam.full_proj,
+                                                          cam.camera_center))
+    full = dict(leaves)
+    scales = full.pop("scales", None)
+    quats = full.pop("quats", None)
+    means, opac = full.pop("means"), full.pop("opacities")
+    if fn is project_forward_plain:
+        out = fn(means, scales, quats, opac, wv, fp, cc, projection_frame(cam, kw),
+                 alive=kw["alive"], **full)
+    else:
+        out = fn(means, scales, quats, opac, wv, fp, cc, cam.width, cam.height,
+                 cam.tan_half_fov_x, cam.tan_half_fov_y, **full, **kw)
+    return out, leaves
+
+
+def projection_frame(cam, kw):
+    """The projection's scalars for `cam` and a case's keyword arguments."""
+    from semantic_gaussians_torch.ops.projection import Frame
+
+    return Frame(cam.width, cam.height, cam.tan_half_fov_x, cam.tan_half_fov_y,
+                 kw["sh_degree"], kw.get("scaling_modifier", 1.0))
+
+
+PROJECTION_FLOATS = ("means2d", "depths", "conics", "opacities", "colors", "cull_ellipse")
+PROJECTION_GRAD_OUTS = ("means2d", "depths", "conics", "opacities", "colors")
+
+
+def projection_cotangents(proj, seed):
+    """Random cotangents of the differentiable outputs, all zero on a
+    PROJECTION_ZERO_ROWS share of the rows (Gaussians without pairs)."""
+    import torch
+
+    gen = torch.Generator(proj.means2d.device).manual_seed(seed)
+    n = proj.means2d.shape[0]
+    live = torch.rand(n, generator=gen, device=proj.means2d.device) >= PROJECTION_ZERO_ROWS
+    out = []
+    for f in PROJECTION_GRAD_OUTS:
+        x = getattr(proj, f)
+        g = torch.randn(x.shape, generator=gen, device=x.device)
+        out.append(g * (live if x.dim() == 1 else live[:, None]))
+    return out, live
+
+
+def projection_bytes(n, k, c, kind, active, shade):
+    """(forward, backward) bytes the kernels need: inputs read once,
+    outputs written once; the backward reads the cotangents of every
+    Gaussian and the inputs of the `active` ones (the SH rows of the
+    `shade` ones, whose colour cotangent is nonzero)."""
+    shape = 24 if kind == "world_rotate" else 28  # cov6, or scales + quats
+    sh = 12 * k
+    offset = 8 if kind != "world_rotate" else 0
+    fwd = n * (12 + shape + 4 + sh + 1 + offset) + n * (4 * 13 + 12 - (12 if k == 0 else 0))
+    cots = n * 4 * (7 + (3 if k else 0))
+    bwd = cots + active * (12 + shape + 1) + shade * sh + n * (12 + shape + 4 + sh)
+    return fwd, bwd
+
+
+def check_projection_case(case, dev):
+    """The kernels against the plain version on one case: forward floats
+    finite and at rtol 1e-5 (atol 1e-6 x the column's largest |value|),
+    widened by twice the plain version's own distance to its float64 run
+    (entries whose rounding a cancellation amplifies: the two sum in other
+    orders; `widened` counts them), and for the conic and the cull
+    quadratic by 8 ulps of the conic's condition (|ac| + b^2) / |det|.
+    Every entry of a Gaussian that either version draws (radius > 0) lies
+    inside that; outside it (`outside`) only entries of Gaussians both
+    cull, on at most 1e-5 of a field's entries (at the camera plane, |p_w|
+    near 1e-6). Radii within 1 on at most 1e-4 of the Gaussians (ceil
+    ties). The backward's gradients, per leaf, no further from float64
+    autograd of the plain forward (norm-relative, over all rows and over
+    the drawn rows alone) than twice the float32 autograd's own gap, and
+    no further from the hand backward (project_backward_plain, float32 on
+    the card, the kernel's order of operations but for cuBLAS's and
+    torch's sums) than twice the hand backward's own gap; exact zeros
+    where every cotangent is zero, the offset's gradient the means2d
+    cotangent itself; then times against the byte bounds."""
+    import torch
+
+    from semantic_gaussians_torch.ops import projection
+
+    name, n, _, _, _, _, k, _, kind = case
+    leaves, kw, cam = projection_inputs(case, dev)
+    kproj, _ = projection_call(projection.project_gaussians, leaves, kw, cam)
+    pproj, _ = projection_call(projection.project_forward_plain, leaves, kw, cam)
+    proj64, leaves64 = projection_call(projection.project_forward_plain, leaves, kw, cam,
+                                       torch.float64)
+    culled = (kproj.radii == 0) & (pproj.radii == 0)
+    # the conic inverts a 2x2 covariance: det = ac - b^2 amplifies the
+    # relative rounding of a, b and c by (|ac| + b^2) / |det|, the same for
+    # the conic itself; capped at 2^24, where float32 keeps no bit
+    A, B, C = proj64.conics.detach().unbind(-1)
+    cond = ((A * C).abs() + B * B) / (A * C - B * B).abs()
+    cond = torch.nan_to_num(cond, nan=2.0**24).clamp(max=2.0**24)[:, None]
+    widened, outside = {}, {}
+    for f in PROJECTION_FLOATS:
+        got, want = getattr(kproj, f).detach(), getattr(pproj, f).detach()
+        if not bool(torch.isfinite(got).all()):
+            fail(f"projection {name}: {f} is not finite")
+        bound = 1e-5 * want.abs() + 1e-6 * want.abs().amax(dim=0, keepdim=True)
+        own = 2.0 * (want.double() - getattr(proj64, f).detach()).abs()
+        if f in ("conics", "cull_ellipse"):
+            own = own + 8.0 * 2.0**-24 * cond * want.double().abs()
+        diff = (got - want).abs()
+        widened[f] = int((diff > bound).sum())
+        out = diff > bound + own.float()
+        in_culled = culled if out.dim() == 1 else culled[:, None]
+        outside[f] = dict(drawn=int((out & ~in_culled).sum()),
+                          culled=int((out & in_culled).sum()))
+        if outside[f]["drawn"] or outside[f]["culled"] > 1e-5 * got.numel():
+            fail(f"projection {name}: {f}: {outside[f]} of {got.numel()} entries out of "
+                 f"tolerance: {close_enough(got, want, 1e-5, 1e-6, slack=own.float())}")
+    ties = {}
+    for f in ("radii", "radii_xy"):
+        got, want = getattr(kproj, f), getattr(pproj, f)
+        if got.dtype != torch.int32:
+            fail(f"projection {name}: {f} is {got.dtype}")
+        diff = (got - want).abs()
+        ties[f] = int((diff > 0).sum())
+        if int(diff.max()) > 1 or ties[f] > 1e-4 * n:
+            fail(f"projection {name}: {f} differs on {ties[f]} of {n} (max {int(diff.max())})")
+    if kind == "override" and kproj.colors is not leaves["override_color"]:
+        fail(f"projection {name}: the override colour was not passed through")
+
+    cots, live = projection_cotangents(pproj, SEED + 1)
+    names = list(leaves)
+
+    def grads(proj, lv):
+        return dict(zip(names, torch.autograd.grad(
+            [getattr(proj, f) for f in PROJECTION_GRAD_OUTS], [lv[x] for x in names], cots,
+            retain_graph=True)))
+
+    before = projection.LAUNCHES.snapshot()
+    g_kernel = grads(kproj, leaves)
+    launched = {key: v for key, v in projection.LAUNCHES.since(before)[1].items() if v}
+    if launched != {"bwd": 1}:
+        fail(f"projection {name}: the backward launched {launched}")
+    g32 = grads(pproj, leaves)
+    g64 = dict(zip(names, torch.autograd.grad(
+        [getattr(proj64, f) for f in PROJECTION_GRAD_OUTS], [leaves64[x] for x in names],
+        [c.double() for c in cots])))
+    del proj64, leaves64
+    kargs = [leaves["means"], leaves.get("scales"), leaves.get("quats"), leaves.get("sh_coeffs"),
+             leaves.get("cov3d_precomp"), kw["alive"], cam.world_view, cam.full_proj,
+             cam.camera_center, projection_frame(cam, kw)]
+    kargs = [a.detach() if isinstance(a, torch.Tensor) else a for a in kargs]
+    colour_cot = cots[4] if k else None
+    hand = dict(zip(("means", "scales", "quats", "opacities", "sh_coeffs", "cov3d_precomp"),
+                    projection.project_backward_plain(*kargs, *cots[:4], colour_cot)))
+    drawn = pproj.radii > 0
+
+    def norm(a, rows):
+        return float((a if rows is None else a[rows]).double().norm())
+
+    gaps = {}
+    for x in names:
+        ref = g64[x]
+        for rows_name, rows in (("all", None), ("drawn", drawn)):
+            scale = norm(ref, rows) or 1.0
+            gk = norm(g_kernel[x].double() - ref, rows) / scale
+            gp = norm(g32[x].double() - ref, rows) / scale
+            gaps[f"{x}.{rows_name}"] = dict(kernel=gk, plain=gp)
+            if not gk <= 2.0 * gp:
+                fail(f"projection {name}: gradient of {x} ({rows_name} rows): kernel gap "
+                     f"{gk:.3g} > 2 x plain {gp:.3g}")
+            if hand.get(x) is not None:
+                gh = norm(hand[x].double() - ref, rows) / scale
+                kh = norm(g_kernel[x].double() - hand[x].double(), rows) / scale
+                gaps[f"{x}.{rows_name}"].update(hand=gh, kernel_to_hand=kh)
+                if not kh <= 2.0 * gh:
+                    fail(f"projection {name}: gradient of {x} ({rows_name} rows): kernel to "
+                         f"hand backward {kh:.3g} > 2 x the hand backward's gap {gh:.3g}")
+        if bool(g_kernel[x][~live].any()) or not bool(torch.isfinite(g_kernel[x]).all()):
+            fail(f"projection {name}: gradient of {x} not exact zeros on zero-cotangent rows "
+                 "or not finite")
+    if "mean2d_offset" in names and not torch.equal(g_kernel["mean2d_offset"], cots[0]):
+        fail(f"projection {name}: the offset's gradient is not the means2d cotangent")
+    del g32, g64, hand
+
+    # times: the kernels (device_us: graph replays), the plain forward and
+    # autograd's backward through it (the layer before the kernels)
+    with torch.no_grad():
+        fwd_us = device_us(lambda: projection_call(
+            projection.project_gaussians, leaves, kw, cam))
+        plain_fwd_ms = cuda_ms(lambda: projection_call(
+            projection.project_forward_plain, leaves, kw, cam), 5)
+    bwd_us = device_us(lambda: projection._project_backward_cuda(
+        *kargs, cots[0], cots[1], cots[2], cots[3], colour_cot))
+    plain_bwd_ms = cuda_ms(lambda: grads(pproj, leaves), 5)
+    shade = int((live & (cots[4].abs().sum(-1) > 0)).sum()) if k else 0
+    fb, bb = projection_bytes(n, k, PROJECTION_OVERRIDE_C if kind == "override" else 3, kind,
+                              int(live.sum()), shade)
+    out = dict(n=n, kind=kind, k=k, fwd_ms=fwd_us / 1e3, bwd_ms=bwd_us / 1e3,
+               fwd_bound_ms=fb / PEAK_BYTES * 1e3, bwd_bound_ms=bb / PEAK_BYTES * 1e3,
+               fwd_bytes=fb, bwd_bytes=bb, plain_fwd_ms=plain_fwd_ms,
+               plain_autograd_bwd_ms=plain_bwd_ms, radius_ties=ties, widened=widened,
+               outside=outside, grad_gaps=gaps)
+    print(f"projection {name}: {json.dumps(out)}")
+    return out
+
+
+def projection_graph_launches(dev):
+    """One forward and one backward launch a train step under a CUDA-graph
+    replay: two 10-step train_scan_step chunks at 1M Gaussians (648x484,
+    random target images); the second, a replay alone, must count 10 of
+    each."""
+    import numpy as np
+    import torch
+
+    from semantic_gaussians_torch.core.gaussians import GaussianParams
+    from semantic_gaussians_torch.ops import projection
+    from semantic_gaussians_torch.pipelines.train import (
+        TrainConfig, init_train_state, stack_camera_chunk, train_scan_step,
+    )
+    from semantic_gaussians_torch.utils.graphs import GraphRunner
+
+    case = PROJECTION_CASES[0]
+    leaves, kw, cam = projection_inputs(case, dev)
+    sh = leaves["sh_coeffs"].detach()
+    params = GaussianParams(
+        means=leaves["means"].detach(), sh_dc=sh[:, :1].contiguous(),
+        sh_rest=sh[:, 1:].contiguous(), log_scales=torch.log(leaves["scales"].detach()),
+        quats=leaves["quats"].detach(),
+        opacity_logits=torch.logit(leaves["opacities"].detach())[:, None])
+    gen = torch.Generator(dev).manual_seed(SEED)
+    cams = [dataclasses.replace(cam, image=torch.rand((cam.height, cam.width, 3), generator=gen,
+                                                      device=dev)) for _ in range(10)]
+    stack = stack_camera_chunk(cams)
+    bgs = torch.zeros((10, 3), device=dev)
+    state = init_train_state(params, kw["alive"])
+    runner = GraphRunner(dev)
+    state, _ = train_scan_step(state, stack, bgs, TrainConfig(), 3, runner=runner)
+    torch.cuda.synchronize()
+    before = projection.LAUNCHES.snapshot()
+    state, _ = train_scan_step(state, stack, bgs, TrainConfig(), 3, runner=runner)
+    torch.cuda.synchronize()
+    got = {key: v for key, v in projection.LAUNCHES.since(before)[1].items() if v}
+    if got != {"fwd": 10, "bwd": 10} or runner.replays != 2 or runner.captures != 1:
+        fail(f"projection launches over one 10-step replay: {got} "
+             f"(captures {runner.captures}, replays {runner.replays})")
+    return dict(replay_launches=got, captures=runner.captures, replays=runner.replays)
+
+
+def projection_phase(dev, card):
+    """Phase 19: the projection kernels against the plain version on
+    PROJECTION_CASES, their times beside the byte bounds, and the launch
+    count under a graph replay."""
+    import torch
+
+    t0 = time.perf_counter()
+    cases = {}
+    for case in PROJECTION_CASES:
+        cases[case[0]] = check_projection_case(case, dev)
+        torch.cuda.empty_cache()
+    graph = projection_graph_launches(dev)
+    wall = time.perf_counter() - t0
+    print(json.dumps({"card": card, "projection": dict(cases=cases, graph=graph,
+                                                       wall_s=wall)}))
+    return dict(cases=cases, graph=graph, wall_s=wall)
+
+
+def projection_only():
+    """`python3 chip_smoke.py --projection`: builds the kernels and runs
+    phase 19 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from semantic_gaussians_torch.ops import kernels
+
+    card = card_line()
+    print(f"card: {card}")
+    print(f"kernels built: {kernels.build_all()}")
+    for name, log in kernels.BUILD_LOG.items():
+        regs = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
+        print(f"  {name}: {regs}")
+    projection_phase(torch.device("cuda:0"), card)
+    print(card_line())
+
+
 def segsum_replay_only():
     """`python3 chip_smoke.py --segsum-replay`: builds the segment sum and
     runs check_segsum_replay alone, at the main path's shapes without the
@@ -4663,5 +5041,7 @@ def segsum_replay_only():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--segsum-replay"]:
         segsum_replay_only()
+    elif sys.argv[1:] == ["--projection"]:
+        projection_only()
     else:
         main()

@@ -64,16 +64,31 @@ _BWD_SIGNATURES = {
 }
 
 
+class _PackGeometry(torch.autograd.Function):
+    """The geometry table written column block by column block into one
+    allocation (on the card, a copy each is faster than torch.cat's kernel
+    for 8-float rows); each input's gradient is a view of the table's."""
+
+    @staticmethod
+    def forward(ctx, means2d, conics, opacities, depths):
+        geom = torch.empty((means2d.shape[0], GEOM_COLS), dtype=torch.float32,
+                           device=means2d.device)
+        geom[:, 0:2] = means2d
+        geom[:, 2:5] = conics
+        geom[:, 5] = opacities
+        geom[:, 6] = depths
+        geom[:, 7] = 0.0
+        return geom
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, 0:2], g[:, 2:5], g[:, 5], g[:, 6]
+
+
 def pack_geometry(means2d, conics, opacities, depths) -> torch.Tensor:
-    """Per-Gaussian geometry table [N, 8] float32 (one 32-byte row each)."""
-    n = means2d.shape[0]
-    return torch.cat(
-        [
-            means2d, conics, opacities[:, None], depths[:, None],
-            torch.zeros((n, 1), dtype=means2d.dtype, device=means2d.device),
-        ],
-        dim=-1,
-    ).to(torch.float32).contiguous()
+    """Per-Gaussian geometry table [N, 8] float32 (one 32-byte row each):
+    means2d, conic (a, b, c), opacity, depth and a zero pad."""
+    return _PackGeometry.apply(means2d, conics, opacities, depths)
 
 
 def _tile_frame(nt: int, grid_w: int, tile_h: int, tile_w: int, dev):

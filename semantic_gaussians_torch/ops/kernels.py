@@ -38,7 +38,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
 )
-SOURCES = ("expand", "composite_fwd", "composite_bwd", "segsum", "segsum_probe", "phase")
+SOURCES = ("expand", "composite_fwd", "composite_bwd", "segsum", "segsum_probe", "phase",
+           "projection")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -8,7 +8,9 @@
   largest value;
 * the port's dense oracle vs the JAX `rasterize_dense`;
 * the plain version's work counts (what chip_smoke.py's bound is computed
-  from) vs a per-pixel walk.
+  from) vs a per-pixel walk;
+* `pack_geometry`'s table and its gradients vs the same columns joined by
+  torch.cat.
 Tolerances are tests/test_rasterize.py's: render and final_T at rtol 1e-4,
 atol 1e-5; depth at 1e-4/1e-4; n_contrib exact. The CUDA kernel is held
 against the same plain version by chip_smoke.py.
@@ -180,3 +182,21 @@ def test_plain_backward_matches_jax_vjp(num_ch):
     assert work["evaluated"] == int(n_contrib.sum())
     got_bg = torch.einsum("tp,tcp->c", final_t, torch.from_numpy(gcol))
     np.testing.assert_allclose(np_(got_bg), np_(want_bg), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pack_geometry_is_the_joined_columns(dtype):
+    gen = torch.Generator().manual_seed(3)
+    n = 37
+    ins = [torch.randn(shape, generator=gen, dtype=dtype).requires_grad_(True)
+           for shape in ((n, 2), (n, 3), (n,), (n,))]
+    geom = pack_geometry(*ins)
+    joined = torch.cat([ins[0], ins[1], ins[2][:, None], ins[3][:, None],
+                        torch.zeros((n, 1), dtype=dtype)], dim=-1).float()
+    assert geom.dtype == torch.float32 and geom.is_contiguous()
+    assert torch.equal(geom, joined)
+    g = torch.randn((n, 8), generator=gen)
+    got = torch.autograd.grad(geom, ins, g)
+    want = torch.autograd.grad(joined, ins, g)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b)

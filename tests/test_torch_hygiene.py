@@ -258,7 +258,7 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed for segsum_probe.cu"):
         kernels.build_all(["segsum_probe"])
     assert set(kernels.SOURCES) == {"expand", "composite_fwd", "composite_bwd", "segsum",
-                                    "segsum_probe", "phase"}
+                                    "segsum_probe", "phase", "projection"}
     assert all((kernels.CSRC / f"{name}.cu").is_file() for name in kernels.SOURCES)
     # the bit-compared alpha and cull decisions build without FMA contraction
     assert "-fmad=false" in kernels.NVCC_FLAGS
