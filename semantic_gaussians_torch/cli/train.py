@@ -1,4 +1,4 @@
-"""RGB 3DGS training entry point (port of the root train.py).
+"""3DGS training entry point (port of the root train.py), RGB or Feature 3DGS.
 
 Usage:
     python -m semantic_gaussians_torch.cli.train \\
@@ -15,6 +15,18 @@ views) at each test milestone; a milestone of 0 evaluates the initial
 state. `train.steps_per_dispatch` (default 10) steps go in one chunk, on
 CUDA one CUDA-graph replay (pipelines.train.train_loop); 1 runs every step
 eagerly.
+
+With `model.feature_dim=D` (> 0) it trains Feature 3DGS (Zhou et al., CVPR
+2024): a D-channel feature field rendered with the colour in one composite
+and fit to a 2D teacher's maps, one per training image in
+`train.feature_dir` (`<image name>.npy|.npz|.pt`, [H, W, D] or [D, H, W],
+resized nearest to the view), held on the device in float16 (as LSeg's
+exported maps; the loss upcasts them), at `train.semantic_feature_lr` and
+`train.lambda_feature`. The field starts at zero. Beside each PLY it writes
+the field as fused features, `point_cloud/iteration_<it>/features/<scene
+name>/0.pt` ({feat, mask_full}, pipelines.fusion.save_fused_features), so
+that `fusion.out_dir=<that features dir>` hands them to the eval CLI (mode
+2d) and the viewer. Feature fields train on one device.
 
 With `pipeline.distributed=true` every process is one rank (a card, or a
 CPU process with `--device cpu`, which runs on gloo): the process group is
@@ -37,12 +49,14 @@ import torch
 
 from ..config.config import load_config, pretty
 from ..core.densify import DensifyConfig
-from ..core.gaussians import init_from_pcd, num_alive
+from ..core.gaussians import init_from_pcd, num_alive, with_feature_field
+from ..models.predictors import PrecomputedFeatureProvider
 from ..core.optimizer import TrainHyper
 from ..io.ply import save_gaussian_ply
 from ..io.scene import load_scene, realize_camera
 from ..parallel import multihost
 from ..parallel.train_parallel import hybrid_train_loop
+from ..pipelines.fusion import save_fused_features
 from ..pipelines.train import TrainConfig, init_train_state, train_loop
 from ..renderer import render
 from ..utils.checkpoint import save_state
@@ -60,6 +74,20 @@ def evaluate(state, cameras, bg, backend="tiled", pair_budget=None):
             l1s.append(float(l1_loss(out["render"], cam.image)))
             psnrs.append(float(psnr(out["render"], cam.image)))
     return float(np.mean(l1s)), float(np.mean(psnrs))
+
+
+def load_teacher_maps(feature_dir, infos, dim: int, device) -> torch.Tensor:
+    """[V, H, W, D] float16 on `device`: the teacher map of each camera in
+    `infos`, looked up by image name (PrecomputedFeatureProvider's files),
+    at the camera's size."""
+    prov = PrecomputedFeatureProvider(feature_dir, dim, "float16")
+    h, w = infos[0].height, infos[0].width
+    if any((c.width, c.height) != (w, h) for c in infos):
+        raise ValueError("a feature field's training views must share one size")
+    out = torch.empty((len(infos), h, w, dim), dtype=torch.float16, device=device)
+    for i, c in enumerate(infos):
+        out[i] = torch.from_numpy(prov.extract_image_feature(c.image_path, (w, h)))
+    return out
 
 
 def main(argv=None) -> dict:
@@ -115,6 +143,14 @@ def _train(cfg, t, device, distributed) -> dict:
         scene.points, scene.colors, sh_degree=int(cfg.model.sh_degree),
         capacity=cfg.model.get("capacity"), device=device,
     )
+    feature_dim = int(cfg.model.get("feature_dim") or 0)
+    teacher = None
+    if feature_dim:
+        if distributed:
+            raise ValueError("model.feature_dim > 0 trains on one device, not distributed")
+        params = with_feature_field(params, feature_dim)
+        teacher = load_teacher_maps(t.feature_dir, scene.train_cameras, feature_dim, device)
+        print(f"teacher maps {tuple(teacher.shape)} {teacher.dtype} from {t.feature_dir}")
     state = init_train_state(params, alive)
     tc = TrainConfig(
         hyper=TrainHyper(
@@ -126,6 +162,7 @@ def _train(cfg, t, device, distributed) -> dict:
             opacity_lr=t.opacity_lr,
             scaling_lr=t.scaling_lr,
             rotation_lr=t.rotation_lr,
+            semantic_feature_lr=float(t.get("semantic_feature_lr", 0.001)),
         ),
         densify=DensifyConfig(
             grad_threshold=t.densify_grad_threshold, percent_dense=t.percent_dense,
@@ -141,6 +178,8 @@ def _train(cfg, t, device, distributed) -> dict:
         white_background=white,
         random_background=bool(t.get("random_background", False)),
         spatial_lr_scale=extent,
+        feature_dim=feature_dim,
+        lambda_feature=float(t.get("lambda_feature", 1.0)),
     )
     out_dir = pathlib.Path(t.get("out_dir") or pathlib.Path("output") / str(t.exp_name))
     if primary:
@@ -178,7 +217,7 @@ def _train(cfg, t, device, distributed) -> dict:
                 state, cameras, tc, generator, extent, num_iters=target - done,
                 backend=backend, log_every=100, pair_budget=budget, iter_offset=done,
                 steps_per_dispatch=int(t.get("steps_per_dispatch", 10)),
-                tb_dir=str(out_dir / "tb_logs"),
+                tb_dir=str(out_dir / "tb_logs"), teacher=teacher,
             )
             summary["logs"].append(log)
             done = target
@@ -190,6 +229,11 @@ def _train(cfg, t, device, distributed) -> dict:
             ply = out_dir / "point_cloud" / f"iteration_{target}" / "point_cloud.ply"
             save_gaussian_ply(ply, state.params, state.alive.cpu().numpy())
             summary["plys"].append(ply)
+            if feature_dim:  # the PLY's rows, in its order
+                feats = ply.parent / "features" / pathlib.Path(cfg.scene.scene_path).name / "0.pt"
+                rows = state.params.features[state.alive].cpu().numpy()
+                save_fused_features(feats, rows, np.ones(rows.shape[0], bool))
+                summary.setdefault("features", []).append(feats)
             print(f"saved {ply} ({int(num_alive(state.alive))} gaussians)")
         if primary and target in ckpt_iters:
             save_state(out_dir / f"ckpt_{target}.pt", state)

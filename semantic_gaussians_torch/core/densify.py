@@ -13,7 +13,9 @@ same slots. Semantics (see the JAX module for the reference lines):
   * prune: opacity < min_opacity, plus (with max_screen_size) the
     0.1 * extent world-size test; the screen-radius test stays inert
     unless `screen_size_prune_active`;
-  * statistics reset after each pass.
+  * statistics reset after each pass;
+  * a feature field's rows go with their Gaussian: a clone and both split
+    children copy the parent's, a pruned slot keeps its row but is dead.
 The split noise eps comes from `noise` (a list of split_n [cap, 3]
 arrays, so tests can hand both packages the same draws) or else from
 `torch.randn` with the given generator.
@@ -27,7 +29,7 @@ from typing import List, Optional
 import torch
 
 from ..utils.transforms import quat_to_rotmat
-from .gaussians import FIELDS, GaussianParams
+from .gaussians import GaussianParams, leaf_names
 from .optimizer import AdamState, zero_moments_at, zero_moments_leaf
 
 
@@ -112,7 +114,7 @@ def _insert(params, alive, adam, cand, cand_valid):
     k = torch.minimum(cand_valid.sum(), (~alive).sum())
     take = torch.arange(cap, device=alive.device) < k
     new = {}
-    for f in FIELDS:
+    for f in leaf_names(params):
         p, c = getattr(params, f), getattr(cand, f)
         shape = (-1,) + (1,) * (p.dim() - 1)
         out = p.clone()

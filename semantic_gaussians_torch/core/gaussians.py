@@ -10,6 +10,12 @@ The state is a frozen dataclass of tensors; edits build a new one with
 initial state from a point cloud (the JAX package's, with the port's own
 torch KNN in place of its native or blocked-JAX one). `packed_features`
 is the distill net's per-Gaussian input.
+
+A state may carry one more leaf, `features` [N, D]: the learned feature
+field of Feature 3DGS (Zhou et al., CVPR 2024), composited with the
+colour's own alpha weights and trained against a 2D teacher's maps. It is
+outside FIELDS (the 3DGS leaves); `leaf_names` lists the leaves a state
+has, and RGB-only states (features None) take exactly the 3DGS path.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from ..ops.knn import knn_mean_sq_dist
 from ..utils.sh import rgb_to_sh, sh_to_rgb
 
 FIELDS = ("means", "sh_dc", "sh_rest", "log_scales", "quats", "opacity_logits")
+FEATURES = "features"  # the Feature 3DGS leaf, where a state has one
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +42,7 @@ class GaussianParams:
     log_scales: torch.Tensor  # [N, 3]
     quats: torch.Tensor  # [N, 4] raw (normalized on use)
     opacity_logits: torch.Tensor  # [N, 1]
+    features: Optional[torch.Tensor] = None  # [N, D] learned feature field, or None
 
     @property
     def capacity(self) -> int:
@@ -67,8 +75,30 @@ class GaussianParams:
         """[N, K, 3] full SH stack (dc first)."""
         return torch.cat([self.sh_dc, self.sh_rest], dim=1)
 
+    @property
+    def feature_dim(self) -> int:
+        return 0 if self.features is None else self.features.shape[1]
+
     def to_numpy(self) -> Dict[str, np.ndarray]:
-        return {f: getattr(self, f).detach().cpu().numpy() for f in FIELDS}
+        return {f: getattr(self, f).detach().cpu().numpy() for f in leaf_names(self)}
+
+
+def leaf_names(params: GaussianParams) -> Tuple[str, ...]:
+    """The leaves `params` carries: FIELDS, then FEATURES where it has a
+    feature field."""
+    return FIELDS if params.features is None else FIELDS + (FEATURES,)
+
+
+def with_feature_field(params: GaussianParams, dim: int,
+                       features: Optional[torch.Tensor] = None) -> GaussianParams:
+    """`params` with a feature field of width `dim`: `features` [N, dim]
+    as given, else zeros (Feature 3DGS starts its field at zero)."""
+    if features is None:
+        features = torch.zeros((params.capacity, dim), dtype=torch.float32,
+                               device=params.device)
+    if tuple(features.shape) != (params.capacity, dim):
+        raise ValueError(f"features {tuple(features.shape)}, expected ({params.capacity}, {dim})")
+    return dataclasses.replace(params, features=features)
 
 
 def round_capacity(n: int, granule: int = 4096) -> int:
@@ -81,14 +111,15 @@ def params_from_numpy(
 ) -> GaussianParams:
     """Carry GaussianParams leaves given as numpy arrays (e.g. the JAX
     package's, via np.asarray) into the port's state, as float32 on
-    `device`. Values are copied bit for bit (never shared with the caller)."""
+    `device`. Values are copied bit for bit (never shared with the caller);
+    a "features" array, where given, becomes the feature field."""
     missing = [f for f in FIELDS if f not in arrays]
     if missing:
         raise KeyError(f"missing GaussianParams fields: {missing}")
     return GaussianParams(
         **{
             f: torch.from_numpy(np.array(arrays[f], dtype=np.float32)).to(device)
-            for f in FIELDS
+            for f in FIELDS + ((FEATURES,) if FEATURES in arrays else ())
         }
     )
 

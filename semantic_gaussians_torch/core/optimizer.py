@@ -5,7 +5,8 @@ torch.optim.Adam (xyz at position_lr * spatial scale on an exponential
 schedule, f_dc at feature_lr, f_rest at feature_lr / 20, fixed opacity /
 scaling / rotation rates, eps = 1e-15) as an explicit optimizer whose
 moments are GaussianParams-shaped, so densification can zero the moments
-of the slots it touches with a masked update. The update is
+of the slots it touches with a masked update. A feature field (Feature
+3DGS) is one more group, at `semantic_feature_lr`. The update is
 torch.optim.Adam's:
   m_hat = m / (1 - b1^t);  v_hat = v / (1 - b2^t)
   p -= lr * m_hat / (sqrt(v_hat) + eps)
@@ -18,7 +19,7 @@ import dataclasses
 import torch
 
 from ..utils.schedules import expon_lr_schedule
-from .gaussians import FIELDS, GaussianParams
+from .gaussians import GaussianParams, leaf_names
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,18 +41,21 @@ class TrainHyper:
     opacity_lr: float = 0.05
     scaling_lr: float = 0.005
     rotation_lr: float = 0.001
+    semantic_feature_lr: float = 0.001  # the feature field's (Feature 3DGS's own rate)
     beta1: float = 0.9
     beta2: float = 0.999
     eps: float = 1e-15
 
 
 def _map(fn, *trees: GaussianParams) -> GaussianParams:
-    return GaussianParams(**{f: fn(*(getattr(t, f) for t in trees)) for f in FIELDS})
+    return GaussianParams(**{f: fn(*(getattr(t, f) for t in trees)) for f in leaf_names(trees[0])})
 
 
-def lr_tree(hyper: TrainHyper, spatial_lr_scale: float, step) -> GaussianParams:
+def lr_tree(hyper: TrainHyper, spatial_lr_scale: float, step,
+            features: bool = False) -> GaussianParams:
     """Per-leaf learning rates at `step` (float32 scalars on the step's
-    device; `step` may be a device tensor, so nothing syncs)."""
+    device; `step` may be a device tensor, so nothing syncs), with the
+    feature field's where `features`."""
     xyz_sched = expon_lr_schedule(
         hyper.position_lr_init * spatial_lr_scale,
         hyper.position_lr_final * spatial_lr_scale,
@@ -70,6 +74,7 @@ def lr_tree(hyper: TrainHyper, spatial_lr_scale: float, step) -> GaussianParams:
         log_scales=const(hyper.scaling_lr),
         quats=const(hyper.rotation_lr),
         opacity_logits=const(hyper.opacity_lr),
+        features=const(hyper.semantic_feature_lr) if features else None,
     )
 
 
@@ -95,7 +100,7 @@ def adam_update(
     bc1 = 1.0 - torch.pow(torch.full((), b1, dtype=torch.float32, device=t.device), t)
     bc2 = 1.0 - torch.pow(torch.full((), b2, dtype=torch.float32, device=t.device), t)
     new_p, new_m, new_v = {}, {}, {}
-    for f in FIELDS:
+    for f in leaf_names(params):
         p, g = getattr(params, f), getattr(grads, f)
         m = b1 * getattr(state.mu, f) + (1 - b1) * g
         v = b2 * getattr(state.nu, f) + (1 - b2) * g * g

@@ -15,6 +15,8 @@
   X(bin)              \
   X(composite)        \
   X(loss)             \
+  X(feat_loss)        \
+  X(feat_loss_bwd)    \
   X(loss_bwd)         \
   X(composite_bwd)    \
   X(segsum)           \

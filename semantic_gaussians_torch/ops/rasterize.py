@@ -31,6 +31,7 @@ from .projection import ProjectedGaussians
 from .segsum import segsum_contiguous
 
 DEFAULT_TILE: Tuple[int, int] = (16, 32)
+WIDE_BLOCK_COLS = 128  # columns of pair rows reduced at once, where rows are wider
 
 
 def _untile(tile_major: torch.Tensor, grid_shape, tile_shape, h: int, w: int):
@@ -66,11 +67,24 @@ def pair_grads_to_gaussians(rows: torch.Tensor, binning: TileBinning):
        `num_pairs` are all invalid and are skipped);
     4. gather the sums back to original ids through `orig_to_dense`;
        Gaussians without pairs (the sentinel) get exactly zero.
-    The permutation and masking are plain torch, in place on one copy."""
+    The permutation and masking are plain torch, in place on one copy.
+    Rows wider than WIDE_BLOCK_COLS (a feature field's 6 + 3 + D) go
+    through steps 1-3 a block of that many columns at a time, so that the
+    generation-order copy holds one block, not all P (6 + C) floats (8.7 GB
+    at C = 515 and 2^22 pairs)."""
     tracing.phase("segsum", rows.device)
     n = binning.orig_to_dense.shape[0]
-    gen = generation_rows(rows, binning)
-    dense = segsum_contiguous(gen, binning.gen_owner, n + 1, limit=binning.num_pairs)
+    width = rows.shape[1]
+    if width <= WIDE_BLOCK_COLS:
+        gen = generation_rows(rows, binning)
+        dense = segsum_contiguous(gen, binning.gen_owner, n + 1, limit=binning.num_pairs)
+    else:
+        dense = rows.new_empty((n + 1, width))
+        for c in range(0, width, WIDE_BLOCK_COLS):
+            gen = generation_rows(rows[:, c:c + WIDE_BLOCK_COLS], binning)
+            dense[:, c:c + WIDE_BLOCK_COLS] = segsum_contiguous(
+                gen, binning.gen_owner, n + 1, limit=binning.num_pairs)
+            del gen
     has_pairs = (binning.orig_to_dense < n)[:, None]
     per = torch.where(has_pairs, dense[binning.orig_to_dense.long()], 0.0)
     d_geom = torch.cat(

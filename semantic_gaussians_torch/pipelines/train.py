@@ -14,6 +14,15 @@ counterpart of the JAX package's `lax.scan` dispatch: eager PyTorch pays
 the host's launch of every small kernel of a step, hundreds of them, and a
 replay launches them at once. `train_loop(steps_per_dispatch=K)` cuts the
 run into such chunks at the JAX package's boundaries.
+
+Feature 3DGS (Zhou et al., CVPR 2024) trains on the same path: where
+`TrainConfig.feature_dim` > 0 the state carries a feature field [N, D]
+(GaussianParams.features) with its Adam moments, each step renders RGB and
+the field in one composite (renderer.render's `features`) and adds
+`lambda_feature` x the mean |F - F_t| against the view's 2D teacher map,
+and densify, prune and capacity growth carry the field's rows. The teacher
+maps are one tensor [V, H, W, D] (float16 or float32) in the order of the
+cameras; a graphed chunk takes the indices of its views, not the maps.
 """
 from __future__ import annotations
 
@@ -30,15 +39,20 @@ from ..core.densify import (
     densify_and_prune,
     reset_opacity,
 )
-from ..core.gaussians import FIELDS, GaussianParams, num_alive
+from ..core.gaussians import FEATURES, FIELDS, GaussianParams, leaf_names, num_alive
 from ..core.optimizer import AdamState, TrainHyper, adam_init, adam_update, lr_tree
+from ..ops import kernels
 from ..ops.binning import default_pair_budget
 from ..renderer import render
 from ..utils import tracing
 from ..utils.camera import Camera
 from ..utils.graphs import GraphRunner
-from ..utils.losses import photometric_loss, psnr
+from ..utils.losses import l1_loss, photometric_loss, psnr
 from ..utils.logging_utils import ChunkClock, TBLogger
+
+# One count a step that trains a feature field, keyed by the channels its
+# one composite carries (3 + D); graph replays add their steps' counts.
+FEATURE_STEPS = kernels.LaunchCounter("feature_steps")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +79,8 @@ class TrainConfig:
     white_background: bool = False
     random_background: bool = False
     spatial_lr_scale: float = 1.0
+    feature_dim: int = 0  # D of a Feature 3DGS field (0: RGB only)
+    lambda_feature: float = 1.0  # weight of the feature L1 in the loss
 
 
 def init_train_state(params: GaussianParams, alive: torch.Tensor) -> TrainState:
@@ -88,7 +104,7 @@ def train_state_from_numpy(arrays: dict, device) -> TrainState:
         return torch.from_numpy(np.array(x)).to(dtype=dtype, device=device)
 
     def params(d):
-        return GaussianParams(**{f: t(d[f]) for f in FIELDS})
+        return GaussianParams(**{f: t(d[f]) for f in FIELDS + (FEATURES,) if f in d})
 
     adam = arrays["adam"]
     return TrainState(
@@ -132,18 +148,28 @@ def train_step(
     active_sh_degree: int,
     backend: str = "tiled",
     pair_budget: Optional[int] = None,
+    teacher: Optional[torch.Tensor] = None,  # [H, W, D]: the view's teacher map
 ):
     """One optimization step. Returns (new_state, metrics dict of device
-    scalars: loss, psnr, num_points, overflow, num_pairs)."""
+    scalars: loss, psnr, num_points, overflow, num_pairs). With a feature
+    field (cfg.feature_dim > 0) `teacher` is the view's 2D feature map."""
     params = state.params
-    tracing.phase("project", params.device)
-    leaves = {f: getattr(params, f).detach().requires_grad_(True) for f in FIELDS}
-    offset = torch.zeros((params.capacity, 2), dtype=torch.float32, device=params.device,
+    dev = params.device
+    names = leaf_names(params)
+    if params.feature_dim != cfg.feature_dim:
+        raise ValueError(f"the state's feature field has {params.feature_dim} channels, "
+                         f"the config {cfg.feature_dim}")
+    if cfg.feature_dim and (teacher is None or teacher.shape[-1] != cfg.feature_dim):
+        raise ValueError(f"a feature field of {cfg.feature_dim} channels needs a teacher map "
+                         f"of as many, got {None if teacher is None else tuple(teacher.shape)}")
+    tracing.phase("project", dev)
+    leaves = {f: getattr(params, f).detach().requires_grad_(True) for f in names}
+    offset = torch.zeros((params.capacity, 2), dtype=torch.float32, device=dev,
                          requires_grad=True)
     out = render(
         camera, GaussianParams(**leaves), alive=state.alive, bg=bg,
         active_sh_degree=active_sh_degree, mean2d_offset=offset, backend=backend,
-        pair_budget=pair_budget,
+        pair_budget=pair_budget, features=leaves.get(FEATURES),
     )
     pred, gt = out["render"], camera.image
     crop = _edge_crop(camera.height, camera.width, cfg.cut_edge)
@@ -151,14 +177,25 @@ def train_step(
         ch, cw = crop
         pred = pred[ch:camera.height - ch, cw:camera.width - cw]
         gt = gt[ch:camera.height - ch, cw:camera.width - cw]
-    tracing.phase("loss", params.device)
+    tracing.phase("loss", dev)
     loss = photometric_loss(pred, gt, cfg.lambda_dssim)
-    tracing.phase("loss_bwd", params.device)
-    grads = torch.autograd.grad(loss, [leaves[f] for f in FIELDS] + [offset])
-    tracing.phase("update", params.device)
-    gparams = GaussianParams(**dict(zip(FIELDS, grads[:-1])))
+    if cfg.feature_dim:
+        FEATURE_STEPS.add(1, key=3 + cfg.feature_dim)
+        tracing.phase("feat_loss", dev)
+        # the feature term's backward runs first; the photometric one opens loss_bwd
+        feat = tracing.phase_in_backward(out["feature"], "loss_bwd")
+        if crop is not None:
+            feat = feat[ch:camera.height - ch, cw:camera.width - cw]
+            teacher = teacher[ch:camera.height - ch, cw:camera.width - cw]
+        loss = loss + cfg.lambda_feature * l1_loss(feat, teacher)
+        tracing.phase("feat_loss_bwd", dev)
+    else:
+        tracing.phase("loss_bwd", dev)
+    grads = torch.autograd.grad(loss, [leaves[f] for f in names] + [offset])
+    tracing.phase("update", dev)
+    gparams = GaussianParams(**dict(zip(names, grads[:-1])))
     dstate = add_stats(state.dstate, grads[-1], out["radii"], camera.width, camera.height)
-    lrs = lr_tree(cfg.hyper, cfg.spatial_lr_scale, state.step)
+    lrs = lr_tree(cfg.hyper, cfg.spatial_lr_scale, state.step, features=bool(cfg.feature_dim))
     new_params, new_adam = adam_update(gparams, state.adam, params, lrs, cfg.hyper)
     with torch.no_grad():
         metrics = dict(
@@ -210,9 +247,10 @@ def camera_at(stack: Camera, tensors: Dict[str, torch.Tensor], j: int) -> Camera
 
 def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
     """A TrainState as a flat dict of tensors (a graph's carry)."""
-    out = {f"params.{f}": getattr(state.params, f) for f in FIELDS}
-    out.update({f"mu.{f}": getattr(state.adam.mu, f) for f in FIELDS})
-    out.update({f"nu.{f}": getattr(state.adam.nu, f) for f in FIELDS})
+    names = leaf_names(state.params)
+    out = {f"params.{f}": getattr(state.params, f) for f in names}
+    out.update({f"mu.{f}": getattr(state.adam.mu, f) for f in names})
+    out.update({f"nu.{f}": getattr(state.adam.nu, f) for f in names})
     out.update({f"dstate.{k}": getattr(state.dstate, k)
                 for k in ("xyz_grad_accum", "denom", "max_radii2d")})
     out.update(alive=state.alive, count=state.adam.count, step=state.step)
@@ -222,8 +260,10 @@ def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
 def state_from_tensors(t: Dict[str, torch.Tensor]) -> TrainState:
     """The inverse of state_tensors (the tensors themselves, not copies)."""
 
+    names = FIELDS + ((FEATURES,) if f"params.{FEATURES}" in t else ())
+
     def params(prefix):
-        return GaussianParams(**{f: t[f"{prefix}.{f}"] for f in FIELDS})
+        return GaussianParams(**{f: t[f"{prefix}.{f}"] for f in names})
 
     return TrainState(
         params=params("params"), alive=t["alive"],
@@ -243,11 +283,15 @@ def train_scan_step(
     backend: str = "tiled",
     pair_budget: Optional[int] = None,
     runner: Optional[GraphRunner] = None,
+    teacher: Optional[torch.Tensor] = None,  # [V, H, W, D] teacher maps of every view
+    views: Optional[torch.Tensor] = None,  # [K] int64: each step's row of `teacher`
 ):
     """K dependent train steps in one dispatch: on a CUDA device one replay
     of a graph that captured the K steps (`runner` caches the graphs; pass
     the same runner for every chunk, or each call captures anew), on the
-    CPU the K steps eagerly. Returns (state, metrics stacked [K]).
+    CPU the K steps eagerly. Returns (state, metrics stacked [K]). With a
+    feature field, step j's teacher map is row views[j] of `teacher`, read
+    inside the graph (the maps are not copied into its inputs).
 
     On CUDA the returned state's tensors are the runner's static buffers,
     rewritten by the next replay of the same graph; the state handed in is
@@ -256,21 +300,30 @@ def train_scan_step(
     changes any of them is captured anew."""
     k = bgs.shape[0]
     inputs = dict(camera_tensors(cam_stack), bgs=bgs)
+    if teacher is not None:
+        inputs["views"] = views
 
     def body(carry, inp):
         st = state_from_tensors(carry)
         per_step = []
         for j in range(k):
+            tj = (None if teacher is None
+                  else torch.index_select(teacher, 0, inp["views"][j:j + 1])[0])
             st, m = train_step(st, camera_at(cam_stack, inp, j), inp["bgs"][j], cfg,
-                               active_sh_degree, backend, pair_budget)
+                               active_sh_degree, backend, pair_budget, teacher=tj)
             per_step.append(m)
         return state_tensors(st), {name: torch.stack([m[name] for m in per_step])
                                    for name in per_step[0]}
 
     runner = runner or GraphRunner(state.params.device)
+    bank = None if teacher is None else (teacher.data_ptr(), tuple(teacher.shape), teacher.dtype)
     key = ("train", k, active_sh_degree, pair_budget, backend, cfg,
-           camera_statics(cam_stack), state.params.capacity)
-    carry, metrics = runner.run(key, body, state_tensors(state), inputs)
+           camera_statics(cam_stack), bank, state.params.capacity)
+    # a feature field's chunks of any K capture without a warm-up of their own
+    # once one has warmed up (each would hold the memory of a step besides
+    # the graphs' pool: tens of GB)
+    warm_key = key[:1] + key[2:] if cfg.feature_dim else None
+    carry, metrics = runner.run(key, body, state_tensors(state), inputs, warm_key)
     return state_from_tensors(carry), metrics
 
 
@@ -316,7 +369,7 @@ def grow_capacity(state: TrainState, factor: int = 2) -> TrainState:
         return out
 
     def pad_params(p):
-        return GaussianParams(**{f: pad(getattr(p, f)) for f in FIELDS})
+        return GaussianParams(**{f: pad(getattr(p, f)) for f in leaf_names(p)})
 
     params = pad_params(state.params)
     logits = params.opacity_logits.clone()
@@ -339,6 +392,15 @@ def tuned_pair_budget(pairs: int) -> int:
     granule = max(8192, 1 << max(int(np.log2(want)) - 2, 0))
     out = -(-want // granule) * granule
     return min(out, (1 << 24) - 8192)
+
+
+def _to_device(ints: list, dev: torch.device) -> torch.Tensor:
+    """int64 [len(ints)] on `dev`, copied from pinned memory so that the
+    host does not wait for the stream's queued work."""
+    host = torch.tensor(ints, dtype=torch.int64)
+    if dev.type == "cuda":
+        host = host.pin_memory()
+    return host.to(dev, non_blocking=True)
 
 
 def chunk_length(s: int, steps_per_dispatch: int, left: int) -> int:
@@ -368,6 +430,7 @@ def train_loop(
     steps_per_dispatch: int = 1,
     tb_dir: Optional[str] = None,
     runner: Optional[GraphRunner] = None,
+    teacher: Optional[torch.Tensor] = None,
 ):
     """Single-device driver, the JAX package's train_loop step for step:
     cameras in the order `np.random.default_rng(shuffle_seed)` permutes
@@ -382,8 +445,9 @@ def train_loop(
     once per set of statics (a new budget, SH degree or capacity captures
     anew; graphs whose SH degree or capacity cannot recur are dropped). A
     chunk's backgrounds are drawn at once. Densify, opacity reset and the
-    capacity growth run eagerly between chunks. A chunk of one step, or of
-    cameras whose statics differ, runs train_step step by step. `tb_dir`
+    capacity growth run eagerly between chunks. A chunk of one step (but
+    with a feature field), or of cameras whose statics differ, runs
+    train_step step by step. `tb_dir`
     logs the JAX package's TensorBoard scalars every 10 iterations and the
     opacity histogram every 1000 (utils.logging_utils.TBLogger; nothing
     without tensorboard); its `train/iter_time`, and the step time that
@@ -393,7 +457,8 @@ def train_loop(
     into many calls (the parity harness's 50-iteration chunks) passes one
     runner to all of them and captures each set of statics once, as the
     JAX package's jit cache outlives a call; by default every call makes
-    its own.
+    its own. With a feature field, `teacher` [V, H, W, D] holds the 2D
+    teacher map of each of the V `cameras`, in their order.
 
     Returns (state, log): log["loss"] / ["psnr"] / ["overflow"] /
     ["num_pairs"] are device tensors with one entry per step, log["budget"]
@@ -418,11 +483,14 @@ def train_loop(
     log = {k: torch.zeros(iters, dtype=torch.float32, device=dev) for k in keys}
     log.update(budget=[], cameras=[], chunks=[], densify=[], history=[])
 
-    def pick_cam():
+    if cfg.feature_dim and (teacher is None or teacher.shape[0] != len(cameras)):
+        raise ValueError("a feature field needs one teacher map a camera")
+
+    def pick_view():
         nonlocal order
         if not order:
             order = list(rng.permutation(len(cameras)))
-        return cameras[order.pop()]
+        return order.pop()
 
     rel = 0
     while rel < iters:
@@ -430,22 +498,28 @@ def train_loop(
         n = chunk_length(s, steps_per_dispatch, iters - rel)
         sh_deg = min(cfg.max_sh_degree, s // 1000)
         with tracing.span("sgt.loop.prep"):
-            cams = [pick_cam() for _ in range(n)]
+            picked = [pick_view() for _ in range(n)]
+            cams = [cameras[i] for i in picked]
             if cfg.random_background:
                 bgs = torch.rand((n, 3), generator=generator, device=dev)
             else:
                 bgs = bg.expand(n, 3)
-            stack = stack_camera_chunk(cams) if n > 1 else None
+            # a feature field's single steps replay a graph too: eagerly, a
+            # step would take its tens of GB outside the graphs' pool
+            stack = stack_camera_chunk(cams) if n > 1 or cfg.feature_dim else None
         with clock.chunk(n):
             if stack is not None:
+                views = None if teacher is None else _to_device(picked, dev)
                 state, per = train_scan_step(state, stack, bgs, cfg, sh_deg, backend,
-                                             pair_budget, runner)
+                                             pair_budget, runner, teacher, views)
             else:
                 with tracing.span("sgt.train_step.eager"):
                     steps = []
                     for j, cam in enumerate(cams):
-                        state, m = train_step(state, cam, bgs[j], cfg, sh_deg, backend=backend,
-                                              pair_budget=pair_budget)
+                        state, m = train_step(
+                            state, cam, bgs[j], cfg, sh_deg, backend=backend,
+                            pair_budget=pair_budget,
+                            teacher=None if teacher is None else teacher[picked[j]])
                         steps.append(m)
                     per = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
                     tracing.phase("between", dev)

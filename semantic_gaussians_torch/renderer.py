@@ -5,9 +5,16 @@ scaling_modifier, override_color, override_shape, foreground mask,
 world_rotate, bg color, and N-channel feature rendering. Differentiable:
 autograd reaches every GaussianParams leaf, the features and
 `mean2d_offset` (whose gradient is the densify statistic dL/dmean2D).
+
+`features` renders Feature 3DGS's joint image: the SH colour and the
+feature rows are composited together, [N, 3 + D] in one pass over one
+binning, with the colour's own alpha weights; the feature channels get no
+background. The colour cotangent is split back into the projection's
+three channels and the features' D by the concatenation's backward.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -37,12 +44,15 @@ def render(
     backend: str = "tiled",
     tight_cull: bool = True,
     mean2d_offset: Optional[torch.Tensor] = None,  # [N, 2] zeros (densify stats)
+    features: Optional[torch.Tensor] = None,  # [N, D] -> RGB and features jointly
 ) -> dict:
     """Render RGB(+median depth) or N-channel features from one camera, on
-    the device that holds `params`.
+    the device that holds `params`; with `features`, RGB and the features
+    in one composite.
 
     Returns dict(render [H,W,C], depth, final_T, n_contrib, radii [N],
-    overflow, num_pairs).
+    overflow, num_pairs), and with `features` also feature [H,W,D] (render
+    then holds the RGB channels).
     """
     dev = params.device
     tracing.phase("project", dev)
@@ -87,10 +97,17 @@ def render(
         alive=alive,
         mean2d_offset=mean2d_offset,
     )
+    num_ch = proj.colors.shape[1]
+    if features is not None:
+        proj = dataclasses.replace(proj, colors=torch.cat([proj.colors, features], 1))
+        bg = torch.cat([bg, bg.new_zeros(features.shape[1])])
     out = rasterize(
         proj, bg, camera.width, camera.height, tile_shape=tile_shape,
         pair_budget=pair_budget, backend=backend, tight_cull=tight_cull,
     )
+    if features is not None:
+        joint = out["render"]
+        out["render"], out["feature"] = joint[..., :num_ch], joint[..., num_ch:]
     out["radii"] = proj.radii
     return out
 

@@ -20,6 +20,8 @@ def _to_tree(x: Any) -> Any:
         return {f.name: _to_tree(getattr(x, f.name)) for f in dataclasses.fields(x)}
     if isinstance(x, torch.Tensor):
         return x.detach().cpu()
+    if x is None:  # a leaf the state does not carry (an RGB state's feature field)
+        return None
     raise TypeError(f"cannot checkpoint a {type(x).__name__}")
 
 
@@ -29,7 +31,7 @@ def _from_tree(tree: Any, like: Any, device) -> Any:
             f.name: _from_tree(tree[f.name], getattr(like, f.name), device)
             for f in dataclasses.fields(like)
         })
-    return tree.to(device)
+    return None if tree is None else tree.to(device)
 
 
 def save_state(path, state: Any) -> None:

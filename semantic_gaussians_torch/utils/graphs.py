@@ -12,18 +12,30 @@ where `body` runs the K steps of a chunk and returns (new carry, outputs),
 all dicts of tensors. On a CUDA device the first call for a `key` (the
 statics that make the JAX package recompile: K, shapes, the pair budget,
 the SH degree, ...) copies `carry` and `inputs` into static buffers that
-the runner owns, warms up on a side stream by running the body once on
-copies of the carry (so that the warm-up advances no state: training state,
-fusion accumulators and confusion sums are untouched by it), captures one
-call of the body into a `torch.cuda.CUDAGraph`, whose last act copies the
-new carry into the carry's buffers, and replays it. Later calls copy their
-carry (where it is not already the buffers) and inputs into the buffers and
-replay. The carry returned is the buffers themselves: hand it back to the
-next call and nothing is copied; it is overwritten by the next replay of
-that key's graph. Outputs are cloned out of the graph's pool. The body's
+the runner owns, warms up on a side stream by running the body once on the
+carry's buffers and then copying the carry into them again (so that the
+warm-up advances no state: training state, fusion accumulators and
+confusion sums are untouched by it), captures one call of the body into a
+`torch.cuda.CUDAGraph`, whose last act copies the new carry into the
+carry's buffers, and replays it. Later calls copy their carry (where it is
+not already the buffers) and inputs into the buffers and replay. Graphs
+whose carries have the same names, shapes and types share one set of
+buffers. The carry returned is the buffers themselves: hand it back to the
+next call and nothing is copied; it is overwritten by the next replay of a
+graph that shares them. Outputs are cloned out of the graph's pool.
+Captures that a caller gives one `warm_key` run the same steps (a train
+chunk of K or of fewer steps): the first warms up, the others find
+everything made already and skip it. The body's
 end is marked for a profiler's trace (utils.tracing): phase `carry`
 before the carry's copy, `between` after it, captured into the graph so
 that every replay shows where its dispatch ends.
+
+All graphs of a runner share one memory pool: they never run at once, and
+what outlives a replay is in buffers outside the pool (the carry) or
+cloned out of it (the outputs), so a later capture may reuse what an
+earlier graph only needs while it runs. The allocator's cache is emptied
+between the warm-up and the capture, so that the capture can take the
+memory the warm-up left cached (a feature field's steps need tens of GB).
 
 A capture that fails raises; the runner never runs the body eagerly on a
 CUDA device instead. On any other device it calls the body eagerly, step
@@ -97,6 +109,9 @@ class GraphRunner:
     def __init__(self, device):
         self.device = torch.device(device)
         self._graphs: Dict[Hashable, _Captured] = {}
+        self._pool = None  # the graphs' shared memory pool, made at the first capture
+        self._carries: Dict[tuple, Tensors] = {}  # carry buffers, by the carry's signature
+        self._warmed: set = set()  # warm keys whose first capture warmed up
         self.captures = 0
         self.replays = 0
 
@@ -104,10 +119,15 @@ class GraphRunner:
         """Forget the graphs whose key cannot recur (and their memory)."""
         for key in [k for k in self._graphs if stale(k[0])]:
             del self._graphs[key]
+        used = {k[1] for k in self._graphs}
+        for sig in [s for s in self._carries if s not in used]:
+            del self._carries[sig]
 
-    def run(self, key: Hashable, body: Body, carry: Tensors, inputs: Inputs):
+    def run(self, key: Hashable, body: Body, carry: Tensors, inputs: Inputs,
+            warm_key: Hashable = None):
         """body(carry, inputs) -> (new carry, outputs); see the module
-        docstring for what a CUDA device does with it."""
+        docstring for what a CUDA device does with it. Captures that share
+        a `warm_key` warm up once; None warms up every capture."""
         if self.device.type != "cuda":
             out = body(carry, {k: _stacked(v) for k, v in inputs.items()})
             tracing.phase("carry", self.device)
@@ -117,7 +137,7 @@ class GraphRunner:
         entry = self._graphs.get(key)
         if entry is None:
             with tracing.span("sgt.graph.capture"):
-                entry = self._graphs[key] = self._capture(body, carry, inputs)
+                entry = self._graphs[key] = self._capture(body, carry, inputs, key[1], warm_key)
         else:
             with tracing.span("sgt.graph.fill"):
                 for k, v in carry.items():
@@ -131,24 +151,44 @@ class GraphRunner:
                 counter.add_gain(gain)
             return dict(entry.carry), {k: v.clone() for k, v in entry.outputs.items()}
 
-    def _capture(self, body: Body, carry: Tensors, inputs: Inputs) -> _Captured:
+    def _capture(self, body: Body, carry: Tensors, inputs: Inputs, sig: tuple,
+                 warm_key: Hashable) -> _Captured:
         dev = self.device
-        static_carry = {k: v.detach().clone() for k, v in carry.items()}
+        static_carry = self._carries.get(sig)
+        if static_carry is None:
+            static_carry = self._carries[sig] = {k: v.detach().clone() for k, v in carry.items()}
+        else:
+            for k, v in carry.items():
+                _fill(static_carry[k], v)
         static_in = {k: _empty_like_input(v, dev) for k, v in inputs.items()}
         for k, v in inputs.items():
             _fill(static_in[k], v)
-        # Warm-up on a side stream, on copies of the carry: it claims every
-        # lazily made resource (kernel libraries, the segment sum's scratch,
-        # shared-memory opt-ins, library handles) outside the capture.
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            body({k: v.clone() for k, v in static_carry.items()}, static_in)
-        torch.cuda.current_stream(dev).wait_stream(side)
+        if warm_key is None or warm_key not in self._warmed:
+            # Warm-up on a side stream: it claims every lazily made resource
+            # (kernel libraries, the segment sum's scratch, shared-memory
+            # opt-ins, library handles) outside the capture. It runs on the
+            # carry's buffers, which are then filled again, or on copies
+            # where the carry handed in is the buffers.
+            own = any(carry[k] is static_carry[k] for k in carry)
+            warm = {k: v.clone() for k, v in static_carry.items()} if own else static_carry
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                body(warm, static_in)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            del warm
+            if not own:
+                for k, v in carry.items():
+                    _fill(static_carry[k], v)
+            self._warmed.add(warm_key)
+            with torch.cuda.device(dev):
+                torch.cuda.empty_cache()
 
         graph = torch.cuda.CUDAGraph()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
         before = [(c, c.snapshot()) for c in kernels.COUNTERS]
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, pool=self._pool):
             new_carry, outputs = body(static_carry, static_in)
             tracing.phase("carry", dev)
             for k, v in new_carry.items():

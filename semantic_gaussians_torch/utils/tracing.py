@@ -16,7 +16,9 @@ device events, and nothing else records them:
 The phases of a train step, in stream order (PHASES): `project` (the
 leaves, projection and SH colour), `bin` (sort, searchsorted, expand, the
 packed geometry), `composite` (the forward kernel, untiling), `loss` (L1
-and SSIM), `loss_bwd` (their backward and the untiling's), `composite_bwd`
+and SSIM), with a feature field (Feature 3DGS) `feat_loss` (the feature
+L1) and `feat_loss_bwd` (its backward, which runs first), `loss_bwd` (the
+photometric backward and the untiling's), `composite_bwd`
 (the backward kernel and the background's gradient), `segsum` (pair rows
 to Gaussians), `project_bwd` (the packed geometry's, projection's and SH
 backward), `update` (densify statistics, learning rates, Adam, the step's
@@ -37,8 +39,8 @@ import torch
 
 from ..ops import kernels
 
-PHASES = ("project", "bin", "composite", "loss", "loss_bwd", "composite_bwd", "segsum",
-          "project_bwd", "update", "carry", "between")
+PHASES = ("project", "bin", "composite", "loss", "feat_loss", "feat_loss_bwd", "loss_bwd",
+          "composite_bwd", "segsum", "project_bwd", "update", "carry", "between")
 _INDEX = {name: i for i, name in enumerate(PHASES)}
 _SIGNATURES = {"sgt_phase": (ctypes.c_int, ctypes.c_void_p)}
 _NULL = contextlib.nullcontext()
@@ -71,6 +73,26 @@ def phase(name: str, device: torch.device) -> None:
     with kernels.on_device(device):
         err = lib.sgt_phase(which, kernels.current_stream(device))
     kernels.check(lib, err, f"sgt_phase_{name}")
+
+
+class _BackwardPhase(torch.autograd.Function):
+    """The identity; its backward opens a phase."""
+
+    @staticmethod
+    def forward(ctx, x, name):
+        ctx.name = name
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        phase(ctx.name, g.device)
+        return g, None
+
+
+def phase_in_backward(x: torch.Tensor, name: str) -> torch.Tensor:
+    """`x` as it is, whose gradient opens phase `name` where the backward
+    reaches it (autograd runs the nodes made last first)."""
+    return _BackwardPhase.apply(x, name)
 
 
 def span(name: str):

@@ -5,6 +5,7 @@ JAX nor the JAX package, so that the card test runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m card tests/test_torch_tracing.py
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -28,6 +29,7 @@ from semantic_gaussians_torch.utils.logging_utils import ChunkClock
 
 STEP = ["project", "bin", "composite", "loss", "loss_bwd", "composite_bwd", "segsum",
         "project_bwd", "update"]
+FEATURE_LOSS = ["feat_loss", "feat_loss_bwd"]  # between loss and loss_bwd, with a feature field
 W, H = 64, 32
 CPU = torch.device("cpu")
 
@@ -64,7 +66,7 @@ CFG = TrainConfig(densify_from_iter=10_000)
 
 
 def test_phase_names_are_the_marker_kernels():
-    assert list(tracing.PHASES) == STEP + ["carry", "between"]
+    assert list(tracing.PHASES) == STEP[:4] + FEATURE_LOSS + STEP[4:] + ["carry", "between"]
     src = (kernels.CSRC / "phase.cu").read_text()
     for name in tracing.PHASES:
         assert f"  X({name})" in src
@@ -79,6 +81,22 @@ def test_train_step_records_the_phase_table():
         train_step(state, cams[0], torch.zeros(3), CFG, 3)
     assert names[:2] == ["project", "project"]  # the step's and render's
     assert _collapsed(names) == STEP
+
+
+def test_a_feature_step_splits_its_loss_from_the_photometric_one():
+    """With a feature field the feature L1 is phase feat_loss, and its
+    backward, which autograd runs first, feat_loss_bwd; the photometric
+    backward opens loss_bwd where the field's gradient leaves the L1."""
+    from semantic_gaussians_torch.core.gaussians import with_feature_field
+
+    state, cams = _toy(CPU)
+    d = 36
+    params = with_feature_field(state.params, d, torch.full((state.params.capacity, d), 0.1))
+    state = init_train_state(params, state.alive)
+    cfg = dataclasses.replace(CFG, feature_dim=d)
+    with tracing.recording() as names:
+        train_step(state, cams[0], torch.zeros(3), cfg, 3, teacher=torch.zeros(H, W, d))
+    assert _collapsed(names) == STEP[:4] + FEATURE_LOSS + STEP[4:]
 
 
 def test_train_scan_step_records_each_step_then_the_dispatch():
