@@ -252,6 +252,7 @@ SEED = 0
 N_GAUSSIANS = 100_000
 WIDTH, HEIGHT = 640, 480
 FEAT_DIM = 768
+JOINT_DIM = 515  # Feature 3DGS's joint composite: RGB and LSeg's 512 channels
 TRAIN_VIEWS, TRAIN_RADIUS, TRAIN_ITERS = 8, 6.0, 100
 FUSE_W, FUSE_H = 648, 484  # the fusion configs' feature-map and eval size
 # The fusion / eval scene: the 100k target with opacity logits raised by this
@@ -556,6 +557,7 @@ def main():
         # K + 1 = 21 one-hot classes, as evaluation's pred_on_3d renders them
         21: torch.nn.functional.one_hot(torch.argmax(feats[:, :21], dim=-1), 21).to(
             torch.float32) * alive[:, None],
+        JOINT_DIM: (feats[:, :JOINT_DIM] * alive[:, None]).contiguous(),
         FEAT_DIM: (feats * alive[:, None]).contiguous(),
     }
     comp_cases = {}
@@ -688,7 +690,7 @@ def main():
         kernel_entry("composite_bwd", "semantic_gaussians_torch/csrc/composite_bwd.cu",
                      "semantic_gaussians_tpu/ops/composite_pallas.py:450", cb[3],
                      max(d["max_abs_err"] for d in cb.values()), card,
-                     shape="C=3 on the viewer's binning; by_channels has C=768; "
+                     shape="C=3 on the viewer's binning; by_channels has C=515 and 768; "
                            "training_view is the timed train view at C=3",
                      device_us=cb[3]["device_us"],
                      by_channels={str(c): composite_numbers(d) for c, d in cb.items()},
@@ -1189,8 +1191,10 @@ def close_enough(got, want, rtol, atol_scale, slack=None):
 def check_backward_kernels(comp_cases, binning, grid, th, tw):
     """Kernel 3 (composite backward) and kernels 4/5 (segment sum) against
     their plain versions on the main path's 100k binning at 640x480, with a
-    random upstream gradient, at C = 3 and C = 768; each kernel run twice
-    must give the same bits. Returns the timing inputs of both kernels."""
+    random upstream gradient, at C = 3 (the one-pass kernel), 515 and 768
+    (the wide one); each kernel run twice must give the same bits. Prints
+    the backward's launches by width. Returns the timing inputs of both
+    kernels."""
     import torch
 
     from semantic_gaussians_torch.ops import composite
@@ -1201,7 +1205,8 @@ def check_backward_kernels(comp_cases, binning, grid, th, tw):
     in_pairs = int(binning.tile_count.sum())
     n = binning.orig_to_dense.numel()
     bwd, seg = {}, {}
-    for c in (3, FEAT_DIM):
+    launches = composite.BWD_LAUNCHES.snapshot()
+    for c in (3, JOINT_DIM, FEAT_DIM):
         args = comp_cases[c]["args"]
         _, _, final_t, n_contrib = composite.composite_forward(*args)
         gen = torch.Generator(dev).manual_seed(SEED + c)
@@ -1229,6 +1234,10 @@ def check_backward_kernels(comp_cases, binning, grid, th, tw):
         d = rows.shape[1]
         sargs = (rows, binning.gen_owner, n + 1, binning.num_pairs)
         seg[d] = dict(args=sargs, max_abs_err=check_segsum(f"D={d}", sargs, exact=False))
+    by_width = {w: k for w, k in composite.BWD_LAUNCHES.since(launches)[1].items() if k}
+    if by_width != {3: 2, JOINT_DIM: 2, FEAT_DIM: 2}:
+        fail(f"composite_bwd launches by width {by_width}: one kernel a call expected")
+    print(f"composite_bwd launches by channel width: {by_width}")
     return bwd, seg
 
 

@@ -1,5 +1,6 @@
 // What the two summing kernels (segsum.cu, segsum_probe.cu) share: cp.async
-// copies into shared memory and the slice-chain sum of their segmented
+// copies into shared memory (which the wide composite backward,
+// composite_bwd.cu, uses too) and the slice-chain sum of their segmented
 // reductions.
 //
 // Both kernels cut a tile of rows into slices of consecutive rows. A thread

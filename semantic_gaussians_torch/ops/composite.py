@@ -355,7 +355,7 @@ def _composite_backward_cuda(
         (pair_gaussian.shape[0], GRAD_GEOM_COLS + num_ch), dtype=torch.float32, device=dev
     )
     lib = kernels.load("composite_bwd", _BWD_SIGNATURES)
-    launched = _I(0)  # 2 at C > 8: a geometry pass, then a colour pass
+    launched = _I(0)  # one kernel: the one-pass (C <= 8) or the wide design
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sgt_composite_bwd(
@@ -365,7 +365,7 @@ def _composite_backward_cuda(
             num_ch, nt, grid_w, tile_w, tile_h, out.data_ptr(), stream,
             ctypes.byref(launched),
         )
-    BWD_LAUNCHES.add(launched.value)
+    BWD_LAUNCHES.add(launched.value, key=num_ch)
     kernels.check(lib, err, "sgt_composite_bwd")
     return out
 

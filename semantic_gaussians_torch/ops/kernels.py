@@ -49,7 +49,7 @@ BUILD_LOG: Dict[str, str] = {}  # name -> nvcc's output (ptxas resource use)
 
 class LaunchCounter:
     """A thread-safe count of kernel launches, in total and by an optional
-    key (the forward composite counts by channel width). Every counter made
+    key (the composite counts both ways by channel width). Every counter made
     is listed in COUNTERS."""
 
     def __init__(self, name: str):

@@ -26,6 +26,9 @@ from semantic_gaussians_torch.core.gaussians import (
 )
 from semantic_gaussians_torch.core.optimizer import TrainHyper
 from semantic_gaussians_torch.ops import composite
+from semantic_gaussians_torch.ops.binning import bin_gaussians, default_pair_budget
+from semantic_gaussians_torch.ops.projection import project_gaussians
+from semantic_gaussians_torch.ops.rasterize import DEFAULT_TILE
 from semantic_gaussians_torch.pipelines.train import (
     FEATURE_STEPS,
     TrainConfig,
@@ -349,12 +352,49 @@ def test_the_train_cli_trains_a_512_channel_field_on_the_card(tmp_path):
     assert summary["logs"][0]["graphs"]["replays"] == 2
 
 
+def _backward_kernel_matches_plain(dev, c):
+    """The composite backward kernel at `c` channels on the first view's
+    binning, with random colours and upstream gradient, against its plain
+    version: rows within rtol 1e-4 / atol 1e-5 x the column's largest
+    |value|, the same bits over two runs. Returns its launches by width."""
+    params, _, cams, _, _ = _inputs(dev)
+    cam = cams[0]
+    with torch.no_grad():
+        proj = project_gaussians(
+            params.means, params.scales, params.quats, params.opacity[:, 0], cam.world_view,
+            cam.full_proj, cam.camera_center, W, H, cam.tan_half_fov_x, cam.tan_half_fov_y,
+            sh_coeffs=params.sh_coeffs, sh_degree=3)
+    th, tw = DEFAULT_TILE
+    grid = (-(-H // th), -(-W // tw))
+    b = bin_gaussians(proj.means2d, proj.depths, proj.radii_xy, (th, tw), grid,
+                      default_pair_budget(N), cull_ellipse=proj.cull_ellipse)
+    geom = composite.pack_geometry(proj.means2d, proj.conics, proj.opacities, proj.depths)
+    gen = torch.Generator(dev).manual_seed(c)
+    args = (geom, torch.rand((N, c), generator=gen, device=dev), b.pair_gaussian,
+            b.tile_start, b.tile_count, torch.linspace(0.1, 0.3, c, device=dev), grid[1], th, tw)
+    _, _, final_t, n_contrib = composite.composite_forward(*args)
+    g_color = torch.randn((b.tile_start.numel(), c, th * tw), generator=gen, device=dev)
+    bargs = args[:6] + (g_color, final_t, n_contrib) + args[6:]
+    before = composite.BWD_LAUNCHES.snapshot()
+    rows, again = composite.composite_backward(*bargs), composite.composite_backward(*bargs)
+    launched = {w: n for w, n in composite.BWD_LAUNCHES.since(before)[1].items() if n}
+    live = int(b.tile_count.sum())
+    rows, again = rows[:live], again[:live]
+    want = composite.composite_backward_plain(*bargs)[:live]
+    assert live > 0 and torch.equal(rows, again)
+    bound = 1e-4 * want.abs() + 1e-5 * want.abs().amax(dim=0, keepdim=True)
+    assert bool(((rows - want).abs() <= bound).all()), float((rows - want).abs().max())
+    return launched
+
+
 @pytest.mark.card
 def test_the_feature_path_on_the_card():
     """The joint render and every gradient on CUDA (the composite's walk and
-    contraction at C = 43, its two backward passes, the wide segment sum)
-    against the reference on CUDA; train_loop's 10-step replays against its
-    single steps (one-step graphs, with a field), bit for bit."""
+    contraction at C = 43, its wide backward, the wide segment sum) against
+    the reference on CUDA; the wide backward against its plain version at
+    C = 9, the narrowest width it takes, and at 64, whole chunks of
+    channels; train_loop's 10-step replays against its single steps
+    (one-step graphs, with a field), bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda:0")
@@ -362,7 +402,10 @@ def test_the_feature_path_on_the_card():
     _check_joint(dev)
     gained = {w: n for w, n in composite.LAUNCHES.since(fwd)[1].items() if n}
     assert gained == {3 + D: 2}  # one composite: walk + contraction
-    assert composite.BWD_LAUNCHES.since(bwd)[0] == 2
+    gained = {w: n for w, n in composite.BWD_LAUNCHES.since(bwd)[1].items() if n}
+    assert gained == {3 + D: 1}  # one composite backward: one kernel
+    for c in (9, 64):
+        assert _backward_kernel_matches_plain(dev, c) == {c: 2}
     params, alive, cams, _, teacher = _inputs(dev)
     state = init_train_state(params, alive)
     graphed, log = train_loop(state, cams, CFG, num_iters=20, steps_per_dispatch=10,
