@@ -29,7 +29,7 @@ from typing import List, Optional
 import torch
 
 from ..utils.transforms import quat_to_rotmat
-from .gaussians import GaussianParams, leaf_names
+from .gaussians import GaussianParams, tree_map
 from .optimizer import AdamState, zero_moments_at, zero_moments_leaf
 
 
@@ -113,19 +113,18 @@ def _insert(params, alive, adam, cand, cand_valid):
     tgt = _stable_order(alive)  # dead slots first
     k = torch.minimum(cand_valid.sum(), (~alive).sum())
     take = torch.arange(cap, device=alive.device) < k
-    new = {}
-    for f in leaf_names(params):
-        p, c = getattr(params, f), getattr(cand, f)
-        shape = (-1,) + (1,) * (p.dim() - 1)
+
+    def put(p, c):
         out = p.clone()
-        out[tgt] = torch.where(take.reshape(shape), c[src], p[tgt])
-        new[f] = out
+        out[tgt] = torch.where(take.reshape((-1,) + (1,) * (p.dim() - 1)), c[src], p[tgt])
+        return out
+
     new_alive = alive.clone()
     new_alive[tgt] = alive[tgt] | take
     touched = torch.zeros(cap, dtype=torch.bool, device=alive.device)
     touched[tgt] = take
     return (
-        GaussianParams(**new), new_alive, zero_moments_at(adam, touched),
+        tree_map(put, params, cand), new_alive, zero_moments_at(adam, touched),
         cand_valid.sum() - k,
     )
 

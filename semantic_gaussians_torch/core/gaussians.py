@@ -16,11 +16,16 @@ field of Feature 3DGS (Zhou et al., CVPR 2024), composited with the
 colour's own alpha weights and trained against a 2D teacher's maps. It is
 outside FIELDS (the 3DGS leaves); `leaf_names` lists the leaves a state
 has, and RGB-only states (features None) take exactly the 3DGS path.
+`tree_leaves` and `tree_build`, the one description of a train state's
+layout, flatten a frozen dataclass of tensors (this one, AdamState,
+DensifyState, a TrainState) to its tensors by dotted path and back.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+import functools
+import typing
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -80,13 +85,53 @@ class GaussianParams:
         return 0 if self.features is None else self.features.shape[1]
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
-        return {f: getattr(self, f).detach().cpu().numpy() for f in leaf_names(self)}
+        return {f: x.detach().cpu().numpy() for f, x in tree_leaves(self).items()}
 
 
 def leaf_names(params: GaussianParams) -> Tuple[str, ...]:
     """The leaves `params` carries: FIELDS, then FEATURES where it has a
     feature field."""
     return FIELDS if params.features is None else FIELDS + (FEATURES,)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(cls) -> Tuple[Tuple[str, Optional[type]], ...]:
+    """(name, its type where that is a dataclass too) of each field of `cls`."""
+    types = typing.get_type_hints(cls)
+    return tuple((f.name, types[f.name] if dataclasses.is_dataclass(types[f.name]) else None)
+                 for f in dataclasses.fields(cls))
+
+
+def tree_leaves(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The tensors (not copies) of a frozen dataclass of tensors by dotted
+    path ("params.means", "adam.mu.features", "step"), nested dataclasses
+    flattened in field order; a None field is absent."""
+    out = {}
+    for name, kind in _layout(type(tree)):
+        x = getattr(tree, name)
+        if kind is not None:
+            out.update(tree_leaves(x, f"{prefix}{name}."))
+        elif x is not None:
+            out[prefix + name] = x
+    return out
+
+
+def tree_build(cls, leaves: Mapping[str, torch.Tensor], prefix: str = ""):
+    """The inverse of tree_leaves (the tensors as given); a field with no
+    leaf takes its default."""
+    kw = {}
+    for name, kind in _layout(cls):
+        if kind is not None:
+            kw[name] = tree_build(kind, leaves, f"{prefix}{name}.")
+        elif prefix + name in leaves:
+            kw[name] = leaves[prefix + name]
+    return cls(**kw)
+
+
+def tree_map(fn: Callable, *trees):
+    """fn leaf by leaf over trees of one layout, as the first one's type."""
+    flat = [tree_leaves(t) for t in trees]
+    return tree_build(type(trees[0]), {k: fn(*(t[k] for t in flat)) for k in flat[0]})
 
 
 def with_feature_field(params: GaussianParams, dim: int,

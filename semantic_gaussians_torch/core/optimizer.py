@@ -19,7 +19,7 @@ import dataclasses
 import torch
 
 from ..utils.schedules import expon_lr_schedule
-from .gaussians import GaussianParams, leaf_names
+from .gaussians import GaussianParams, leaf_names, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,10 +45,6 @@ class TrainHyper:
     beta1: float = 0.9
     beta2: float = 0.999
     eps: float = 1e-15
-
-
-def _map(fn, *trees: GaussianParams) -> GaussianParams:
-    return GaussianParams(**{f: fn(*(getattr(t, f) for t in trees)) for f in leaf_names(trees[0])})
 
 
 def lr_tree(hyper: TrainHyper, spatial_lr_scale: float, step,
@@ -79,7 +75,7 @@ def lr_tree(hyper: TrainHyper, spatial_lr_scale: float, step,
 
 
 def adam_init(params: GaussianParams) -> AdamState:
-    zeros = _map(torch.zeros_like, params)
+    zeros = tree_map(torch.zeros_like, params)
     return AdamState(
         count=torch.zeros((), dtype=torch.int32, device=params.device), mu=zeros, nu=zeros
     )
@@ -120,7 +116,7 @@ def zero_moments_at(state: AdamState, slot_mask: torch.Tensor) -> AdamState:
     def z(x):
         return x * keep.reshape((-1,) + (1,) * (x.dim() - 1))
 
-    return AdamState(count=state.count, mu=_map(z, state.mu), nu=_map(z, state.nu))
+    return AdamState(count=state.count, mu=tree_map(z, state.mu), nu=tree_map(z, state.nu))
 
 
 def zero_moments_leaf(state: AdamState, leaf: str) -> AdamState:

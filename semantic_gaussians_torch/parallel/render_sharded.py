@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.gaussians import FIELDS, GaussianParams
+from ..core.gaussians import GaussianParams, tree_build, tree_leaves
 from ..ops.binning import band_pair_budget, bin_gaussians
 from ..ops.composite import CompositeFunction, pack_geometry
 from ..ops.projection import project_gaussians
@@ -110,10 +110,10 @@ def render_sharded(
     if bg is None:
         bg = torch.zeros(num_ch, dtype=torch.float32, device=params.device)
     sh_degree = params.max_sh_degree if active_sh_degree is None else active_sh_degree
-    leaves = [getattr(params, f) for f in FIELDS]
-    *leaves, override_color, bg, mean2d_offset = replicated(
-        leaves + [override_color, bg, mean2d_offset], mesh, axis)
-    params = GaussianParams(**dict(zip(FIELDS, leaves)))
+    leaves = tree_leaves(params)
+    *values, override_color, bg, mean2d_offset = replicated(
+        list(leaves.values()) + [override_color, bg, mean2d_offset], mesh, axis)
+    params = tree_build(GaussianParams, dict(zip(leaves, values)))
     color, depth, final_t, n_contrib, overflow, radii, num_pairs = band_render_core(
         camera, params, alive, override_color, bg, mean2d_offset, band, band_rows,
         tile_shape, grid_w, budget, sh_degree,

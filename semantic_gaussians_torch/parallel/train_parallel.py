@@ -26,6 +26,8 @@ overflow).
     mean over views.
   * `hybrid_train_loop`: the training protocol over the hybrid steps.
 
+The steps render no feature field: a state with one raises a ValueError.
+
 A ZeRO TrainState holds full, replicated params, alive, dstate, step and
 adam.count; its adam.mu / adam.nu leaves hold this rank's rows only:
 rows [c * capacity / n, (c + 1) * capacity / n) of the full moments, c the
@@ -45,12 +47,13 @@ import numpy as np
 import torch
 
 from ..core.densify import add_stats, add_stats_prereduced
-from ..core.gaussians import FIELDS, GaussianParams, num_alive
+from ..core.gaussians import FEATURES, GaussianParams, num_alive, tree_build, tree_leaves, tree_map
 from ..core.optimizer import AdamState, adam_update, lr_tree
 from ..ops.binning import band_pair_budget
 from ..ops.rasterize import DEFAULT_TILE, _untile
 from ..pipelines.train import (
-    TrainConfig, TrainState, _edge_crop, densify_step, grow_capacity, opacity_reset_step,
+    TrainConfig, TrainState, _crop, _edge_crop, camera_statics, densify_step, grow_capacity,
+    opacity_reset_step,
 )
 from ..renderer import render
 from ..utils.camera import Camera
@@ -68,8 +71,7 @@ def stack_cameras(cams: Sequence[Camera]) -> tuple:
     whose static fields (sizes, fovs, clip planes) match, as stacking their
     leaves requires in the JAX package. Each rank takes its own slot."""
     cams = tuple(cams)
-    key = lambda c: (c.width, c.height, c.fov_x, c.fov_y, c.znear, c.zfar)  # noqa: E731
-    if any(key(c) != key(cams[0]) for c in cams):
+    if any(camera_statics(c) != camera_statics(cams[0]) for c in cams):
         raise ValueError("stacked cameras must share sizes, fovs and clip planes")
     return cams
 
@@ -86,31 +88,35 @@ def _check_batch(cam_batch, n: int, axis: str) -> None:
 def _grad_inputs(params: GaussianParams):
     """Leaves that take gradients, and a zero mean2D offset whose gradient
     is the densify statistic."""
-    leaves = [getattr(params, f).detach().requires_grad_(True) for f in FIELDS]
+    if params.features is not None:
+        raise ValueError(f"the multi-device train steps render no feature field, and the state "
+                         f"has one: {FEATURES!r} [N, {params.feature_dim}]")
+    leaves = tree_map(lambda x: x.detach().requires_grad_(True), params)
     offset = torch.zeros((params.capacity, 2), dtype=torch.float32, device=params.device,
                          requires_grad=True)
     return leaves, offset
 
 
-def _grads(loss, leaves, offset):
-    g = torch.autograd.grad(loss, leaves + [offset], allow_unused=True, materialize_grads=True)
-    return list(g[:-1]), g[-1]
+def _grads(loss, leaves: GaussianParams, offset):
+    flat = tree_leaves(leaves)
+    g = torch.autograd.grad(loss, list(flat.values()) + [offset], allow_unused=True,
+                            materialize_grads=True)
+    return tree_build(GaussianParams, dict(zip(flat, g[:-1]))), g[-1]
 
 
-def _crop(img, gt, crop):
-    if crop is None:
-        return img, gt
-    ch, cw = crop
-    h, w = img.shape[:2]
-    return img[ch:h - ch, cw:w - cw], gt[ch:h - ch, cw:w - cw]
+def _flat(p: GaussianParams) -> torch.Tensor:
+    """Every leaf flattened to [rows, D_i], side by side (flat_rows)."""
+    return flat_rows(list(tree_leaves(p).values()))
 
 
-def _params(leaves) -> GaussianParams:
-    return GaussianParams(**dict(zip(FIELDS, leaves)))
+def _unflat(flat: torch.Tensor, like: GaussianParams) -> GaussianParams:
+    """The inverse of _flat, for `flat`'s own row count."""
+    leaves = tree_leaves(like)
+    return tree_build(GaussianParams, dict(zip(leaves, split_rows(flat, list(leaves.values())))))
 
 
 def _rows(p: GaussianParams, start: int, n: int) -> GaussianParams:
-    return _params([getattr(p, f)[start:start + n] for f in FIELDS])
+    return tree_map(lambda x: x[start:start + n], p)
 
 
 def _per_view_stats(goffset, radii, width, height, mesh, axis):
@@ -153,13 +159,13 @@ def make_parallel_train_step(
         _check_batch(cam_batch, nview, axis)
         cam = cam_batch[mesh.coord(axis)].to(state.params.device)
         leaves, offset = _grad_inputs(state.params)
-        out = render(cam, _params(leaves), alive=state.alive, bg=bg,
+        out = render(cam, leaves, alive=state.alive, bg=bg,
                      active_sh_degree=active_sh_degree, mean2d_offset=offset, backend=backend,
                      pair_budget=pair_budget)
         loss = photometric_loss(out["render"], cam.image, cfg.lambda_dssim)
         grads, goffset = _grads(loss, leaves, offset)
         with torch.no_grad():
-            gparams = _params(split_rows(psum(flat_rows(grads), mesh, axis) / nview, grads))
+            gparams = _unflat(psum(_flat(grads), mesh, axis) / nview, grads)
             norm_sum, vis_sum, radii_any = _per_view_stats(
                 goffset, out["radii"], cam.width, cam.height, mesh, axis)
             loss, step_psnr = _reduce_scalars(
@@ -191,17 +197,16 @@ def make_band_train_step(
     def step(state: TrainState, cam: Camera, bg):
         cam = cam.to(state.params.device)
         leaves, offset = _grad_inputs(state.params)
-        out = render_sharded(cam, _params(leaves), state.alive, mesh, bg,
+        out = render_sharded(cam, leaves, state.alive, mesh, bg,
                              active_sh_degree=active_sh_degree, pair_budget=pair_budget,
                              axis=axis, mean2d_offset=offset)
-        pred, gt = _crop(out["render"], cam.image, _edge_crop(cam.height, cam.width,
-                                                              cfg.cut_edge))
+        pred, gt = _crop(_edge_crop(cam.height, cam.width, cfg.cut_edge), out["render"],
+                         cam.image)
         loss = photometric_loss(pred, gt, cfg.lambda_dssim)
         grads, goffset = _grads(loss, leaves, offset)
         dstate = add_stats(state.dstate, goffset, out["radii"], cam.width, cam.height)
         lrs = lr_tree(cfg.hyper, cfg.spatial_lr_scale, state.step)
-        new_params, new_adam = adam_update(_params(grads), state.adam, state.params, lrs,
-                                           cfg.hyper)
+        new_params, new_adam = adam_update(grads, state.adam, state.params, lrs, cfg.hyper)
         new_state = dataclasses.replace(state, params=new_params, adam=new_adam, dstate=dstate,
                                         step=state.step + 1)
         with torch.no_grad():
@@ -228,11 +233,10 @@ def shard_moments(state: TrainState, mesh: Mesh, axis: str = "band") -> TrainSta
 def gather_moments(state: TrainState, mesh: Mesh, axis: str = "band") -> TrainState:
     """A ZeRO TrainState as a replicated one: the moments' rows gathered
     over the axis (every rank of the axis must call it)."""
-    like = [getattr(state.adam.mu, f) for f in FIELDS] + [getattr(state.adam.nu, f)
-                                                          for f in FIELDS]
-    full = split_rows(all_gather(flat_rows(like), mesh, axis), like)
-    adam = AdamState(count=state.adam.count, mu=_params(full[:len(FIELDS)]),
-                     nu=_params(full[len(FIELDS):]))
+    mu, nu = state.adam.mu, state.adam.nu
+    like = [_flat(mu), _flat(nu)]
+    full_mu, full_nu = split_rows(all_gather(flat_rows(like), mesh, axis), like)
+    adam = AdamState(count=state.adam.count, mu=_unflat(full_mu, mu), nu=_unflat(full_nu, nu))
     return dataclasses.replace(state, adam=adam)
 
 
@@ -246,16 +250,13 @@ def _zero_update(state, grads, mesh, axis_band, axis_view, cfg):
         raise ValueError(f"capacity {cap} must divide over the {n} ranks of '{axis_band}'")
     blk = cap // n
     start = mesh.coord(axis_band) * blk
-    gshard = psum_scatter(flat_rows(grads), mesh, axis_band)
+    gshard = psum_scatter(_flat(grads), mesh, axis_band)
     if axis_view is not None:
         gshard = psum(gshard, mesh, axis_view)
     lrs = lr_tree(cfg.hyper, cfg.spatial_lr_scale, state.adam.count)
     new_shard, new_adam = adam_update(
-        _params(split_rows(gshard, grads)), state.adam, _rows(state.params, start, blk), lrs,
-        cfg.hyper,
-    )
-    shard = [getattr(new_shard, f) for f in FIELDS]
-    return _params(split_rows(all_gather(flat_rows(shard), mesh, axis_band), shard)), new_adam
+        _unflat(gshard, grads), state.adam, _rows(state.params, start, blk), lrs, cfg.hyper)
+    return _unflat(all_gather(_flat(new_shard), mesh, axis_band), new_shard), new_adam
 
 
 def _band_loss(cam, state, leaves, offset, bg, mesh, axis_band, geometry, cfg, sh_degree,
@@ -267,12 +268,12 @@ def _band_loss(cam, state, leaves, offset, bg, mesh, axis_band, geometry, cfg, s
     nband = mesh.size(axis_band)
     budget = pair_budget or band_pair_budget(state.params.capacity, nband)
     color, _, _, _, overflow, radii, _ = band_render_core(
-        cam, _params(leaves), state.alive, None, bg, offset, mesh.coord(axis_band), band_rows,
+        cam, leaves, state.alive, None, bg, offset, mesh.coord(axis_band), band_rows,
         DEFAULT_TILE, grid_w, budget, sh_degree,
     )
     tiles = gather_bands(color, mesh, axis_band)
     img = _untile(tiles, (nband * band_rows, grid_w), DEFAULT_TILE, h, w)
-    pred, gt = _crop(img, cam.image, _edge_crop(h, w, cfg.cut_edge))
+    pred, gt = _crop(_edge_crop(h, w, cfg.cut_edge), img, cam.image)
     loss = photometric_loss(pred, gt, cfg.lambda_dssim)
     with torch.no_grad():
         step_psnr = psnr(img, cam.image)
@@ -333,11 +334,11 @@ def _hybrid_step(mesh, cfg, active_sh_degree, img_height, img_width, pair_budget
                 new_params, new_adam = _zero_update(state, grads, mesh, axis_band, axis_view,
                                                     cfg)
             else:
-                gparams = split_rows(psum_many([flat_rows(grads)], mesh,
-                                               (axis_band, axis_view))[0], grads)
+                gparams = _unflat(psum_many([_flat(grads)], mesh, (axis_band, axis_view))[0],
+                                  grads)
                 lrs = lr_tree(cfg.hyper, cfg.spatial_lr_scale, state.step)
-                new_params, new_adam = adam_update(_params(gparams), state.adam, state.params,
-                                                   lrs, cfg.hyper)
+                new_params, new_adam = adam_update(gparams, state.adam, state.params, lrs,
+                                                   cfg.hyper)
             # the view's mean2D gradient (bands summed), without the 1 / nview
             gview = psum(goffset, mesh, axis_band) * nview
             norm_sum, vis_sum, radii_any = _per_view_stats(

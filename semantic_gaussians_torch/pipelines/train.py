@@ -13,7 +13,11 @@ runs K dependent steps as one replay of a CUDA graph (utils.graphs), the
 counterpart of the JAX package's `lax.scan` dispatch: eager PyTorch pays
 the host's launch of every small kernel of a step, hundreds of them, and a
 replay launches them at once. `train_loop(steps_per_dispatch=K)` cuts the
-run into such chunks at the JAX package's boundaries.
+run into such chunks at the JAX package's boundaries. One rule decides how
+a chunk runs, for every model: with K > 1 every chunk whose cameras share
+their statics is a train_scan_step, whatever its length (the lone step at
+each multiple of 1000 included); with K = 1, and for a chunk whose
+cameras' statics differ, train_step runs step by step.
 
 Feature 3DGS (Zhou et al., CVPR 2024) trains on the same path: where
 `TrainConfig.feature_dim` > 0 the state carries a feature field [N, D]
@@ -39,7 +43,7 @@ from ..core.densify import (
     densify_and_prune,
     reset_opacity,
 )
-from ..core.gaussians import FEATURES, FIELDS, GaussianParams, leaf_names, num_alive
+from ..core.gaussians import FEATURES, GaussianParams, num_alive, tree_build, tree_leaves
 from ..core.optimizer import AdamState, TrainHyper, adam_init, adam_update, lr_tree
 from ..ops import kernels
 from ..ops.binning import default_pair_budget
@@ -95,49 +99,44 @@ def init_train_state(params: GaussianParams, alive: torch.Tensor) -> TrainState:
 
 def train_state_from_numpy(arrays: dict, device) -> TrainState:
     """Carry a TrainState given as numpy arrays (e.g. the JAX package's
-    leaves, via np.asarray) onto `device`: {"params": {field: array},
-    "alive", "adam": {"count", "mu": {field: ...}, "nu": {...}},
-    "dstate": {"xyz_grad_accum", "denom", "max_radii2d"}, "step"}.
-    Values are copied bit for bit."""
+    leaves, via np.asarray) onto `device`, nested as the state is: {"params":
+    {field: array}, "alive", "adam": {"count", "mu": {...}, "nu": {...}},
+    "dstate": {...}, "step"}. Values and types are copied bit for bit."""
 
-    def t(x, dtype=torch.float32):
-        return torch.from_numpy(np.array(x)).to(dtype=dtype, device=device)
+    def leaves(d, prefix=""):
+        for k, x in d.items():
+            if isinstance(x, dict):
+                yield from leaves(x, f"{prefix}{k}.")
+            else:
+                yield prefix + k, torch.from_numpy(np.array(x)).to(device)
 
-    def params(d):
-        return GaussianParams(**{f: t(d[f]) for f in FIELDS + (FEATURES,) if f in d})
-
-    adam = arrays["adam"]
-    return TrainState(
-        params=params(arrays["params"]),
-        alive=t(arrays["alive"], torch.bool),
-        adam=AdamState(count=t(adam["count"], torch.int32), mu=params(adam["mu"]),
-                       nu=params(adam["nu"])),
-        dstate=DensifyState(**{k: t(v) for k, v in arrays["dstate"].items()}),
-        step=t(arrays["step"], torch.int32),
-    )
+    return tree_build(TrainState, dict(leaves(arrays)))
 
 
 def train_state_to_numpy(state: TrainState) -> dict:
     """The inverse of train_state_from_numpy."""
-
-    def n(x):
-        return x.detach().cpu().numpy()
-
-    return dict(
-        params=state.params.to_numpy(),
-        alive=n(state.alive),
-        adam=dict(count=n(state.adam.count), mu=state.adam.mu.to_numpy(),
-                  nu=state.adam.nu.to_numpy()),
-        dstate={k: n(getattr(state.dstate, k)) for k in ("xyz_grad_accum", "denom",
-                                                        "max_radii2d")},
-        step=n(state.step),
-    )
+    out: dict = {}
+    for name, x in tree_leaves(state).items():
+        *path, leaf = name.split(".")
+        d = out
+        for k in path:
+            d = d.setdefault(k, {})
+        d[leaf] = x.detach().cpu().numpy()
+    return out
 
 
 def _edge_crop(h: int, w: int, cut_edge: bool):
     """Crop of h // 100, w // 100 pixels per border (cropping, not masking,
     keeps the loss mean and the SSIM windows as the reference has them)."""
     return (h // 100, w // 100) if cut_edge else None
+
+
+def _crop(crop, *images):
+    """The images [H, W, ...] cut by `crop` (_edge_crop's; None: whole)."""
+    if crop is None:
+        return images
+    (ch, cw), (h, w) = crop, images[0].shape[:2]
+    return tuple(x[ch:h - ch, cw:w - cw] for x in images)
 
 
 def train_step(
@@ -155,7 +154,6 @@ def train_step(
     field (cfg.feature_dim > 0) `teacher` is the view's 2D feature map."""
     params = state.params
     dev = params.device
-    names = leaf_names(params)
     if params.feature_dim != cfg.feature_dim:
         raise ValueError(f"the state's feature field has {params.feature_dim} channels, "
                          f"the config {cfg.feature_dim}")
@@ -163,7 +161,7 @@ def train_step(
         raise ValueError(f"a feature field of {cfg.feature_dim} channels needs a teacher map "
                          f"of as many, got {None if teacher is None else tuple(teacher.shape)}")
     tracing.phase("project", dev)
-    leaves = {f: getattr(params, f).detach().requires_grad_(True) for f in names}
+    leaves = {f: x.detach().requires_grad_(True) for f, x in tree_leaves(params).items()}
     offset = torch.zeros((params.capacity, 2), dtype=torch.float32, device=dev,
                          requires_grad=True)
     out = render(
@@ -171,12 +169,8 @@ def train_step(
         active_sh_degree=active_sh_degree, mean2d_offset=offset, backend=backend,
         pair_budget=pair_budget, features=leaves.get(FEATURES),
     )
-    pred, gt = out["render"], camera.image
     crop = _edge_crop(camera.height, camera.width, cfg.cut_edge)
-    if crop is not None:
-        ch, cw = crop
-        pred = pred[ch:camera.height - ch, cw:camera.width - cw]
-        gt = gt[ch:camera.height - ch, cw:camera.width - cw]
+    pred, gt = _crop(crop, out["render"], camera.image)
     tracing.phase("loss", dev)
     loss = photometric_loss(pred, gt, cfg.lambda_dssim)
     if cfg.feature_dim:
@@ -184,16 +178,14 @@ def train_step(
         tracing.phase("feat_loss", dev)
         # the feature term's backward runs first; the photometric one opens loss_bwd
         feat = tracing.phase_in_backward(out["feature"], "loss_bwd")
-        if crop is not None:
-            feat = feat[ch:camera.height - ch, cw:camera.width - cw]
-            teacher = teacher[ch:camera.height - ch, cw:camera.width - cw]
+        feat, teacher = _crop(crop, feat, teacher)
         loss = loss + cfg.lambda_feature * l1_loss(feat, teacher)
         tracing.phase("feat_loss_bwd", dev)
     else:
         tracing.phase("loss_bwd", dev)
-    grads = torch.autograd.grad(loss, [leaves[f] for f in names] + [offset])
+    grads = torch.autograd.grad(loss, list(leaves.values()) + [offset])
     tracing.phase("update", dev)
-    gparams = GaussianParams(**dict(zip(names, grads[:-1])))
+    gparams = GaussianParams(**dict(zip(leaves, grads[:-1])))
     dstate = add_stats(state.dstate, grads[-1], out["radii"], camera.width, camera.height)
     lrs = lr_tree(cfg.hyper, cfg.spatial_lr_scale, state.step, features=bool(cfg.feature_dim))
     new_params, new_adam = adam_update(gparams, state.adam, params, lrs, cfg.hyper)
@@ -245,35 +237,6 @@ def camera_at(stack: Camera, tensors: Dict[str, torch.Tensor], j: int) -> Camera
         stack, **{f: t[j] for f, t in tensors.items() if f in _CAMERA_TENSORS})
 
 
-def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
-    """A TrainState as a flat dict of tensors (a graph's carry)."""
-    names = leaf_names(state.params)
-    out = {f"params.{f}": getattr(state.params, f) for f in names}
-    out.update({f"mu.{f}": getattr(state.adam.mu, f) for f in names})
-    out.update({f"nu.{f}": getattr(state.adam.nu, f) for f in names})
-    out.update({f"dstate.{k}": getattr(state.dstate, k)
-                for k in ("xyz_grad_accum", "denom", "max_radii2d")})
-    out.update(alive=state.alive, count=state.adam.count, step=state.step)
-    return out
-
-
-def state_from_tensors(t: Dict[str, torch.Tensor]) -> TrainState:
-    """The inverse of state_tensors (the tensors themselves, not copies)."""
-
-    names = FIELDS + ((FEATURES,) if f"params.{FEATURES}" in t else ())
-
-    def params(prefix):
-        return GaussianParams(**{f: t[f"{prefix}.{f}"] for f in names})
-
-    return TrainState(
-        params=params("params"), alive=t["alive"],
-        adam=AdamState(count=t["count"], mu=params("mu"), nu=params("nu")),
-        dstate=DensifyState(**{k: t[f"dstate.{k}"] for k in (
-            "xyz_grad_accum", "denom", "max_radii2d")}),
-        step=t["step"],
-    )
-
-
 def train_scan_step(
     state: TrainState,
     cam_stack: Camera,  # tensors stacked with a leading K (stack_camera_chunk)
@@ -304,7 +267,7 @@ def train_scan_step(
         inputs["views"] = views
 
     def body(carry, inp):
-        st = state_from_tensors(carry)
+        st = tree_build(TrainState, carry)
         per_step = []
         for j in range(k):
             tj = (None if teacher is None
@@ -312,19 +275,16 @@ def train_scan_step(
             st, m = train_step(st, camera_at(cam_stack, inp, j), inp["bgs"][j], cfg,
                                active_sh_degree, backend, pair_budget, teacher=tj)
             per_step.append(m)
-        return state_tensors(st), {name: torch.stack([m[name] for m in per_step])
-                                   for name in per_step[0]}
+        return tree_leaves(st), {name: torch.stack([m[name] for m in per_step])
+                                 for name in per_step[0]}
 
     runner = runner or GraphRunner(state.params.device)
     bank = None if teacher is None else (teacher.data_ptr(), tuple(teacher.shape), teacher.dtype)
     key = ("train", k, active_sh_degree, pair_budget, backend, cfg,
            camera_statics(cam_stack), bank, state.params.capacity)
-    # a feature field's chunks of any K capture without a warm-up of their own
-    # once one has warmed up (each would hold the memory of a step besides
-    # the graphs' pool: tens of GB)
-    warm_key = key[:1] + key[2:] if cfg.feature_dim else None
-    carry, metrics = runner.run(key, body, state_tensors(state), inputs, warm_key)
-    return state_from_tensors(carry), metrics
+    # chunks that differ only in K share one warm-up
+    carry, metrics = runner.run(key, body, tree_leaves(state), inputs, key[:1] + key[2:])
+    return tree_build(TrainState, carry), metrics
 
 
 def densify_step(
@@ -355,34 +315,20 @@ def opacity_reset_step(state: TrainState) -> TrainState:
 
 
 def grow_capacity(state: TrainState, factor: int = 2) -> TrainState:
-    """Capacity doubling: every capacity-sized leaf is padded; new slots are
-    dead, with opacity logit -20 and zero moments."""
+    """Capacity growth: every tensor whose leading dim is the capacity is
+    padded; new slots are dead, with opacity logit -20 and zero moments."""
     cap = state.params.capacity
-    new_cap = cap * factor
 
-    def pad(x, fill=0.0):
+    def pad(name, x):
         if x.dim() == 0 or x.shape[0] != cap:
             return x
-        out = torch.full((new_cap,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+        fill = -20.0 if name == "params.opacity_logits" else 0
+        out = torch.full((cap * factor,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
                          device=x.device)
         out[:cap] = x
         return out
 
-    def pad_params(p):
-        return GaussianParams(**{f: pad(getattr(p, f)) for f in leaf_names(p)})
-
-    params = pad_params(state.params)
-    logits = params.opacity_logits.clone()
-    logits[cap:] = -20.0
-    return TrainState(
-        params=dataclasses.replace(params, opacity_logits=logits),
-        alive=pad(state.alive, False),
-        adam=AdamState(count=state.adam.count, mu=pad_params(state.adam.mu),
-                       nu=pad_params(state.adam.nu)),
-        dstate=DensifyState(**{k: pad(getattr(state.dstate, k)) for k in (
-            "xyz_grad_accum", "denom", "max_radii2d")}),
-        step=state.step,
-    )
+    return tree_build(TrainState, {k: pad(k, x) for k, x in tree_leaves(state).items()})
 
 
 def tuned_pair_budget(pairs: int) -> int:
@@ -440,14 +386,15 @@ def train_loop(
     of the previous check, 10 steps stale). An explicit `pair_budget`
     disables the adaptation.
 
-    Steps go in chunks of up to `steps_per_dispatch` (chunk_length), each
-    one train_scan_step: on a CUDA device one CUDA-graph replay, captured
-    once per set of statics (a new budget, SH degree or capacity captures
-    anew; graphs whose SH degree or capacity cannot recur are dropped). A
-    chunk's backgrounds are drawn at once. Densify, opacity reset and the
-    capacity growth run eagerly between chunks. A chunk of one step (but
-    with a feature field), or of cameras whose statics differ, runs
-    train_step step by step. `tb_dir`
+    Steps go in chunks of up to `steps_per_dispatch` (chunk_length). With
+    `steps_per_dispatch` > 1 every chunk whose cameras share their statics
+    is one train_scan_step, however short: on a CUDA device one CUDA-graph
+    replay, captured once per set of statics (a new budget, SH degree or
+    capacity captures anew; graphs whose SH degree or capacity cannot recur
+    are dropped). With 1, and for a chunk of cameras whose statics differ,
+    train_step runs step by step. A chunk's backgrounds are drawn at once.
+    Densify, opacity reset and the capacity growth run eagerly between
+    chunks. `tb_dir`
     logs the JAX package's TensorBoard scalars every 10 iterations and the
     opacity histogram every 1000 (utils.logging_utils.TBLogger; nothing
     without tensorboard); its `train/iter_time`, and the step time that
@@ -463,10 +410,11 @@ def train_loop(
     Returns (state, log): log["loss"] / ["psnr"] / ["overflow"] /
     ["num_pairs"] are device tensors with one entry per step, log["budget"]
     the pair budget of each step, log["cameras"] the image name of each
-    step's camera, log["chunks"] the (first iteration, steps) of each chunk, log["densify"] a list of (iteration, alive count
-    after, dropped) per densify, log["history"] the (iteration, metrics as
-    floats) printed every `log_every` steps, and log["graphs"] the runner's
-    captures and replays."""
+    step's camera, log["chunks"] the (first iteration, steps) of each
+    chunk, log["densify"] a list of (iteration, alive count after, dropped)
+    per densify, log["history"] the (iteration, metrics as floats) printed
+    every `log_every` steps, and log["graphs"] the runner's captures and
+    replays."""
     iters = num_iters or cfg.iterations
     dev = state.params.device
     bg = torch.ones(3, device=dev) if cfg.white_background else torch.zeros(3, device=dev)
@@ -504,9 +452,7 @@ def train_loop(
                 bgs = torch.rand((n, 3), generator=generator, device=dev)
             else:
                 bgs = bg.expand(n, 3)
-            # a feature field's single steps replay a graph too: eagerly, a
-            # step would take its tens of GB outside the graphs' pool
-            stack = stack_camera_chunk(cams) if n > 1 or cfg.feature_dim else None
+            stack = stack_camera_chunk(cams) if steps_per_dispatch > 1 else None
         with clock.chunk(n):
             if stack is not None:
                 views = None if teacher is None else _to_device(picked, dev)

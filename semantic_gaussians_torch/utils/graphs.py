@@ -23,17 +23,19 @@ whose carries have the same names, shapes and types share one set of
 buffers. The carry returned is the buffers themselves: hand it back to the
 next call and nothing is copied; it is overwritten by the next replay of a
 graph that shares them. Outputs are cloned out of the graph's pool.
-Captures that a caller gives one `warm_key` run the same steps (a train
-chunk of K or of fewer steps): the first warms up, the others find
-everything made already and skip it. The body's
-end is marked for a profiler's trace (utils.tracing): phase `carry`
+Captures that a caller gives one `warm_key` run the same step and differ
+only in how many of them (train_scan_step gives every train chunk the key
+of its statics without K): the first warms up, the others find every
+lazily made resource made already and skip the warm-up. The body's end is
+marked for a profiler's trace (utils.tracing): phase `carry`
 before the carry's copy, `between` after it, captured into the graph so
 that every replay shows where its dispatch ends.
 
 All graphs of a runner share one memory pool: they never run at once, and
 what outlives a replay is in buffers outside the pool (the carry) or
 cloned out of it (the outputs), so a later capture may reuse what an
-earlier graph only needs while it runs. The allocator's cache is emptied
+earlier graph only needs while it runs. Once `drop` has forgotten every
+graph, the next capture opens a new pool. The allocator's cache is emptied
 between the warm-up and the capture, so that the capture can take the
 memory the warm-up left cached (a feature field's steps need tens of GB).
 
@@ -122,6 +124,8 @@ class GraphRunner:
         used = {k[1] for k in self._graphs}
         for sig in [s for s in self._carries if s not in used]:
             del self._carries[sig]
+        if not self._graphs:  # a pool that outlived its graphs cannot be shared again
+            self._pool = None
 
     def run(self, key: Hashable, body: Body, carry: Tensors, inputs: Inputs,
             warm_key: Hashable = None):

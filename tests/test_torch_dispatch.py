@@ -29,6 +29,7 @@ from semantic_gaussians_tpu.pipelines import eval_segmentation as jeval  # noqa:
 from semantic_gaussians_tpu.pipelines import fusion as jfusion  # noqa: E402
 from semantic_gaussians_tpu.pipelines import train as jtrain  # noqa: E402
 from semantic_gaussians_tpu.utils.camera import make_camera as jax_camera  # noqa: E402
+from semantic_gaussians_torch.core.gaussians import tree_leaves  # noqa: E402
 from semantic_gaussians_torch.models.predictors import RandomFeatureProvider  # noqa: E402
 from semantic_gaussians_torch.ops import kernels  # noqa: E402
 from semantic_gaussians_torch.pipelines import eval_segmentation as teval  # noqa: E402
@@ -185,8 +186,8 @@ def test_chunked_loop_matches_single_step_loop():
         s, log = out[spd]
         assert log["densify"] == l1["densify"]
         assert torch.equal(log["loss"], l1["loss"]) and torch.equal(log["psnr"], l1["psnr"])
-        for k, v in ttrain.state_tensors(s).items():
-            assert torch.equal(v, ttrain.state_tensors(s1)[k]), k
+        for k, v in tree_leaves(s).items():
+            assert torch.equal(v, tree_leaves(s1)[k]), k
         assert log["graphs"] == dict(captures=0, replays=0)  # the CPU runs the body eagerly
 
 

@@ -23,19 +23,25 @@ from semantic_gaussians_torch.core.gaussians import (
     GaussianParams,
     leaf_names,
     params_from_numpy,
+    tree_build,
+    tree_leaves,
 )
 from semantic_gaussians_torch.core.optimizer import TrainHyper
 from semantic_gaussians_torch.ops import composite
 from semantic_gaussians_torch.ops.binning import bin_gaussians, default_pair_budget
 from semantic_gaussians_torch.ops.projection import project_gaussians
 from semantic_gaussians_torch.ops.rasterize import DEFAULT_TILE
+from semantic_gaussians_torch.pipelines import train as ttrain
 from semantic_gaussians_torch.pipelines.train import (
     FEATURE_STEPS,
     TrainConfig,
+    TrainState,
     densify_step,
     grow_capacity,
     init_train_state,
     train_loop,
+    train_state_from_numpy,
+    train_state_to_numpy,
     train_step,
 )
 from semantic_gaussians_torch.renderer import render
@@ -230,6 +236,95 @@ def test_densify_prune_and_growth_carry_feature_rows():
         assert float(t[cap:].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("field", [False, True], ids=["rgb", "field"])
+def test_the_train_state_layout(field):
+    """One layout for every list of a train state's tensors: flatten then
+    rebuild gives back the same tensor objects, each leaf named once by its
+    path; the numpy round trip keeps the nested layout and every bit and
+    type; growth pads the parameters, both moments and the densify
+    statistics (the field's rows too) with dead slots at opacity logit -20
+    and zeros."""
+    cap, rng = 512, np.random.default_rng(11)
+    arrays = {k: v[:cap] for k, v in _arrays(seed=5).items() if field or k != "features"}
+    params = params_from_numpy(arrays, "cpu")
+    fresh = init_train_state(params, torch.arange(cap) < 300)
+
+    def distinct(x):  # every float leaf its own random values, the counters 7
+        if x.is_floating_point():
+            return torch.from_numpy(rng.normal(size=x.shape).astype(np.float32))
+        return x + 7 if x.dtype == torch.int32 else x
+
+    state = tree_build(TrainState, {k: distinct(x) for k, x in tree_leaves(fresh).items()})
+    assert state.alive.dtype == torch.bool and int(state.step) == 7
+    leaves = tree_leaves(state)
+    names = leaf_names(params)
+    assert sorted(leaves) == sorted(
+        [f"params.{f}" for f in names] + [f"adam.mu.{f}" for f in names]
+        + [f"adam.nu.{f}" for f in names] + ["alive", "adam.count", "step"]
+        + [f"dstate.{k}" for k in ("xyz_grad_accum", "denom", "max_radii2d")])
+    assert ("params.features" in leaves) == field
+    for name, x in leaves.items():
+        node = state
+        for part in name.split("."):
+            node = getattr(node, part)
+        assert node is x, name
+    assert len({id(x) for x in leaves.values()}) == len(leaves)
+    rebuilt = tree_leaves(tree_build(TrainState, leaves))
+    assert list(rebuilt) == list(leaves) and all(rebuilt[k] is x for k, x in leaves.items())
+
+    nested = train_state_to_numpy(state)
+    assert set(nested) == {"params", "alive", "adam", "dstate", "step"}
+    assert set(nested["adam"]) == {"count", "mu", "nu"} and set(nested["params"]) == set(names)
+    back = tree_leaves(train_state_from_numpy(nested, "cpu"))
+    assert list(back) == list(leaves)
+    for k, x in leaves.items():
+        assert back[k].dtype == x.dtype and torch.equal(back[k], x), k
+
+    grown = tree_leaves(grow_capacity(state))
+    assert list(grown) == list(leaves)
+    for k, x in leaves.items():
+        if x.dim() == 0:
+            assert grown[k] is x, k
+            continue
+        assert grown[k].shape == (2 * cap,) + x.shape[1:] and torch.equal(grown[k][:cap], x), k
+        fill = -20.0 if k == "params.opacity_logits" else 0.0
+        assert bool((grown[k][cap:] == fill).all()), k
+
+
+@pytest.mark.parametrize("spd", [10, 1])
+@pytest.mark.parametrize("field", [False, True], ids=["rgb", "field"])
+def test_one_dispatch_rule_for_every_model(field, spd, monkeypatch):
+    """Iterations 999-1002 hold the lone steps at 999 and 1000: with
+    steps_per_dispatch 10 every chunk, of one step or more, is one
+    train_scan_step, with a feature field or without; with 1 every step is
+    a train_step."""
+    params, alive, cams, _, teacher = _inputs(torch.device("cpu"))
+    cfg = CFG
+    if not field:
+        params, teacher = dataclasses.replace(params, features=None), None
+        cfg = dataclasses.replace(CFG, feature_dim=0)
+    seen, depth = [], [0]
+    for name in ("train_step", "train_scan_step"):
+        def wrapped(state, cam, bg, *a, _fn=getattr(ttrain, name), _name=name, **kw):
+            if not depth[0]:  # the loop's own dispatches, not a chunk's steps
+                seen.append((_name, bg.shape[0] if bg.dim() == 2 else 1))
+            depth[0] += 1
+            try:
+                return _fn(state, cam, bg, *a, **kw)
+            finally:
+                depth[0] -= 1
+
+        monkeypatch.setattr(ttrain, name, wrapped)
+    _, log = train_loop(init_train_state(params, alive), cams, cfg, num_iters=4,
+                        iter_offset=998, steps_per_dispatch=spd, teacher=teacher)
+    if spd == 10:
+        assert log["chunks"] == [(999, 1), (1000, 1), (1001, 2)]
+        assert seen == [("train_scan_step", n) for _, n in log["chunks"]]
+    else:
+        assert seen == [("train_step", 1)] * 4
+    assert torch.isfinite(log["loss"]).all()
+
+
 def test_rgb_only_training_is_unchanged_bit_for_bit():
     """With feature_dim 0 a chunked train_loop on this scene gives the state
     it gave before feature fields existed: the digest below was taken from
@@ -393,8 +488,8 @@ def test_the_feature_path_on_the_card():
     contraction at C = 43, its wide backward, the wide segment sum) against
     the reference on CUDA; the wide backward against its plain version at
     C = 9, the narrowest width it takes, and at 64, whole chunks of
-    channels; train_loop's 10-step replays against its single steps
-    (one-step graphs, with a field), bit for bit."""
+    channels; train_loop's 10-step replays against its eager single steps
+    (steps_per_dispatch 1 captures nothing), bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda:0")
@@ -413,7 +508,7 @@ def test_the_feature_path_on_the_card():
     single, log1 = train_loop(state, cams, CFG, num_iters=20, steps_per_dispatch=1,
                               shuffle_seed=4, teacher=teacher)
     assert log["graphs"]["captures"] == 1 and log["graphs"]["replays"] == 2
-    assert log1["graphs"]["captures"] == 1 and log1["graphs"]["replays"] == 20
+    assert log1["graphs"]["captures"] == 0 and log1["graphs"]["replays"] == 0
     assert torch.equal(log["loss"], log1["loss"])
     for f in leaf_names(params):
         assert torch.equal(getattr(graphed.params, f), getattr(single.params, f)), f

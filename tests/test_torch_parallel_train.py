@@ -138,6 +138,32 @@ def test_short_camera_batch_raises(tmp_path):
         assert msg is not None and "1 views" in msg and "2 devices" in msg
 
 
+@pytest.mark.parametrize("maker", ["dp", "band", "band_zero", "hybrid", "hybrid_zero"])
+def test_steps_refuse_a_feature_field(maker):
+    """Every step maker's step checks its state on entry: the steps render
+    no feature field, so a state with one raises a ValueError that names
+    it (one-rank meshes, in this process)."""
+    from semantic_gaussians_torch.core.gaussians import params_from_numpy, with_feature_field
+    from semantic_gaussians_torch.parallel import train_parallel as tp
+    from semantic_gaussians_torch.parallel.mesh import make_mesh_of
+
+    arrays, alive = scene_arrays(n=64, seed=50)
+    params = with_feature_field(params_from_numpy(arrays, "cpu"), 8)
+    state = ttrain.init_train_state(params, torch.from_numpy(alive))
+    cfg = ttrain.TrainConfig(feature_dim=8)
+    cam = torch_camera(**cam_specs(1, seed=51)[0])
+    line, grid = make_mesh_of((1,), ("data",)), make_mesh_of((1, 1), ("view", "band"))
+    step, cams = dict(
+        dp=lambda: (tp.make_parallel_train_step(line, cfg, 0), (cam,)),
+        band=lambda: (tp.make_band_train_step(line, cfg, 0), cam),
+        band_zero=lambda: (tp.make_band_train_step_zero(line, cfg, 0, H, W), cam),
+        hybrid=lambda: (tp.make_hybrid_train_step(grid, cfg, 0, H, W), (cam,)),
+        hybrid_zero=lambda: (tp.make_hybrid_train_step_zero(grid, cfg, 0, H, W), (cam,)),
+    )[maker]()
+    with pytest.raises(ValueError, match="'features' \\[N, 8\\]"):
+        step(state, cams, torch.zeros(3))
+
+
 def _states_close(a, b, rel=2e-4, moments=True):
     for f in FIELDS:
         for part in (("params",),) + ((("adam", "mu"),) if moments else ()):

@@ -7,6 +7,9 @@ JAX nor the JAX package, so that the card test runs where JAX is absent:
 """
 import dataclasses
 import json
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -143,15 +146,15 @@ def test_span_is_the_shared_no_op_without_a_profiler():
 
 
 def test_train_loop_spans_under_a_cpu_profiler():
-    """Iterations 999 and 1000: single eager steps; densify, a budget check
-    and a log line at 1000."""
+    """Iterations 999 and 1000 at steps_per_dispatch 1: single eager steps;
+    densify, a budget check and a log line at 1000."""
     from torch.profiler import ProfilerActivity, profile
 
     state, cams = _toy(CPU)
     cfg = TrainConfig(densify_from_iter=500)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         state, log = train_loop(state, cams, cfg, num_iters=2, iter_offset=998,
-                                steps_per_dispatch=5, log_every=5)
+                                steps_per_dispatch=1, log_every=5)
     assert log["chunks"] == [(999, 1), (1000, 1)]
     assert [d[0] for d in log["densify"]] == [1000]
     names = {e.name for e in prof.events()}
@@ -191,8 +194,8 @@ def test_chunk_clock_on_the_host():
 
 @pytest.mark.card
 def test_markers_in_profiled_replays_follow_the_phase_table(tmp_path):
-    """On the card: a 10-step graph, a 9-step graph and the eager step at
-    iteration 4000, replayed under torch.profiler. The markers' phases, with
+    """On the card: a 10-step graph, a 9-step graph and the one-step graph
+    at iteration 4000, replayed under torch.profiler. The markers' phases, with
     repeats collapsed, follow the table once a step; every composite
     backward kernel runs inside phase composite_bwd; the loop's and the
     runner's spans are in the trace."""
@@ -206,17 +209,17 @@ def test_markers_in_profiled_replays_follow_the_phase_table(tmp_path):
     runner = GraphRunner(dev)
     calls = [dict(num_iters=10, iter_offset=3010), dict(num_iters=10, iter_offset=3990)]
     with profile(activities=[ProfilerActivity.CPU]) as cap:
-        for kw in calls:  # captures the 10-step and the 9-step graphs
+        for kw in calls:  # captures the 10-step, the 9-step and the one-step graphs
             state, log = train_loop(state, cams, CFG, steps_per_dispatch=10, runner=runner,
                                     **kw)
-    assert log["chunks"] == [(3991, 9), (4000, 1)] and runner.captures == 2
+    assert log["chunks"] == [(3991, 9), (4000, 1)] and runner.captures == 3
     assert "sgt.graph.capture" in {e.name for e in cap.events()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for kw in calls:
             state, _ = train_loop(state, cams, CFG, steps_per_dispatch=10, runner=runner,
                                   **kw)
         torch.cuda.synchronize()
-    assert runner.captures == 2
+    assert runner.captures == 3
     prof.export_chrome_trace(str(tmp_path / "trace.json"))
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     kern = sorted((e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"),
@@ -231,9 +234,42 @@ def test_markers_in_profiled_replays_follow_the_phase_table(tmp_path):
             bwd += 1
     assert bwd >= 20
     want = (STEP * 10 + ["carry", "between"] + STEP * 9 + ["carry", "between"]
-            + STEP + ["between"])
+            + STEP + ["carry", "between"])
     assert _collapsed(phases) == want
     host = {e["name"] for e in events if e.get("cat") == "user_annotation"}
     for span in ("sgt.train_loop", "sgt.loop.prep", "sgt.loop.log", "sgt.loop.budget",
-                 "sgt.graph.fill", "sgt.graph.replay", "sgt.train_step.eager"):
+                 "sgt.graph.fill", "sgt.graph.replay"):
         assert span in host, span
+
+
+_GROW_AND_RECAPTURE = """
+import json, sys, torch
+sys.path[:0] = sys.argv[1:3]
+from semantic_gaussians_torch.ops import kernels
+from semantic_gaussians_torch.pipelines.train import TrainConfig, train_loop
+from test_torch_tracing import _toy
+kernels.build_all()
+state, cams = _toy(torch.device("cuda", 0), views=10)
+cfg = TrainConfig(densify_from_iter=5, densification_interval=10, densify_until_iter=15)
+state, log = train_loop(state, cams, cfg, num_iters=20, steps_per_dispatch=10)
+print(json.dumps(dict(capacity=state.params.capacity, graphs=log["graphs"],
+                      densify=log["densify"], finite=bool(torch.isfinite(log["loss"]).all()))))
+"""
+
+
+@pytest.mark.card
+def test_a_runner_captures_again_after_growth_drops_every_graph():
+    """In a fresh process, whose first capture is the runner's: capacity
+    growth at iteration 10 drops the only graph, and the next chunk
+    captures at twice the capacity. A block made inside the first capture
+    outlives its graph, so the runner must not share that pool again (the
+    allocator refuses it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tests = Path(__file__).resolve().parent
+    out = subprocess.run([sys.executable, "-c", _GROW_AND_RECAPTURE, str(tests.parent),
+                          str(tests)], capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["capacity"] == 600 and [d[0] for d in got["densify"]] == [10]
+    assert got["graphs"] == dict(captures=2, replays=2) and got["finite"]

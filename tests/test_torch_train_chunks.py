@@ -8,6 +8,7 @@ import json
 import numpy as np
 import torch
 
+from semantic_gaussians_torch.core.gaussians import tree_leaves
 from semantic_gaussians_torch.pipelines import train as ttrain
 from semantic_gaussians_torch.utils.graphs import GraphRunner
 from test_torch_dispatch import _toy_training
@@ -17,7 +18,7 @@ CFG = ttrain.TrainConfig(densify_from_iter=5, densification_interval=10,
 
 
 def _equal_states(a, b):
-    ta, tb = ttrain.state_tensors(a), ttrain.state_tensors(b)
+    ta, tb = tree_leaves(a), tree_leaves(b)
     assert ta.keys() == tb.keys()
     for k in ta:
         assert torch.equal(ta[k], tb[k]), k
