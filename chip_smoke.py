@@ -226,6 +226,13 @@ version:
      plain forward and its autograd backward; one forward and one backward
      launch a step over a 10-step graph replay at 1M.
      `python3 chip_smoke.py --projection` runs this phase alone.
+ 20. (run after phase 19) the Adam kernel (csrc/adam.cu) against the plain
+     loop, every output leaf bit for bit, at ADAM_CASES: the RGB state at 1M
+     and 5M Gaussians (59 floats a slot) and at 1M with a 512-wide feature
+     field (571); its device time beside the 28 B-a-float bound, one launch
+     a leaf, the whole adam_update and the plain loop; 10 `adam` launches
+     over a 10-step graph replay at 1M.
+     `python3 chip_smoke.py --adam` runs this phase alone.
 Every phase prints its wall time, and a summary line of them precedes the
 kernels line. Every number is stamped with the card's name and power limit.
 
@@ -502,6 +509,10 @@ def main():
     # ---------------------------------------------------------------- 19
     with phase_wall(walls, "19 projection"):
         projection_phase(dev, card)
+
+    # ---------------------------------------------------------------- 20
+    with phase_wall(walls, "20 adam"):
+        adam_phase(dev, card)
 
     # ---------------------------------------------------------------- scene
     t_scene = time.perf_counter()
@@ -4945,16 +4956,15 @@ def check_projection_case(case, dev):
     return out
 
 
-def projection_graph_launches(dev):
-    """One forward and one backward launch a train step under a CUDA-graph
-    replay: two 10-step train_scan_step chunks at 1M Gaussians (648x484,
-    random target images); the second, a replay alone, must count 10 of
-    each."""
-    import numpy as np
+def replay_launches(dev, counters):
+    """What each counter gains over one 10-step train_scan_step replay at
+    1M Gaussians (648x484, random target images): two chunks through one
+    GraphRunner, the second a replay alone. Returns ({counter name: its
+    gain's by-key counts, or its total where it counts no keys}, captures,
+    replays)."""
     import torch
 
     from semantic_gaussians_torch.core.gaussians import GaussianParams
-    from semantic_gaussians_torch.ops import projection
     from semantic_gaussians_torch.pipelines.train import (
         TrainConfig, init_train_state, stack_camera_chunk, train_scan_step,
     )
@@ -4977,14 +4987,27 @@ def projection_graph_launches(dev):
     runner = GraphRunner(dev)
     state, _ = train_scan_step(state, stack, bgs, TrainConfig(), 3, runner=runner)
     torch.cuda.synchronize()
-    before = projection.LAUNCHES.snapshot()
+    before = [c.snapshot() for c in counters]
     state, _ = train_scan_step(state, stack, bgs, TrainConfig(), 3, runner=runner)
     torch.cuda.synchronize()
-    got = {key: v for key, v in projection.LAUNCHES.since(before)[1].items() if v}
-    if got != {"fwd": 10, "bwd": 10} or runner.replays != 2 or runner.captures != 1:
+    got = {}
+    for c, snap in zip(counters, before):
+        n, keys = c.since(snap)
+        got[c.name] = {key: v for key, v in keys.items() if v} or n
+    return got, runner.captures, runner.replays
+
+
+def projection_graph_launches(dev):
+    """One forward and one backward launch a train step under a CUDA-graph
+    replay: the second of two 10-step chunks at 1M must count 10 of each."""
+    from semantic_gaussians_torch.ops import projection
+
+    got, captures, replays = replay_launches(dev, [projection.LAUNCHES])
+    got = got["projection"]
+    if got != {"fwd": 10, "bwd": 10} or replays != 2 or captures != 1:
         fail(f"projection launches over one 10-step replay: {got} "
-             f"(captures {runner.captures}, replays {runner.replays})")
-    return dict(replay_launches=got, captures=runner.captures, replays=runner.replays)
+             f"(captures {captures}, replays {replays})")
+    return dict(replay_launches=got, captures=captures, replays=replays)
 
 
 def projection_phase(dev, card):
@@ -5005,9 +5028,122 @@ def projection_phase(dev, card):
     return dict(cases=cases, graph=graph, wall_s=wall)
 
 
-def projection_only():
-    """`python3 chip_smoke.py --projection`: builds the kernels and runs
-    phase 19 alone."""
+ADAM_CASES = (  # name, capacity, feature-field width: the train cells' states
+    ("1M", 1_000_000, 0),
+    ("5M", 5_000_000, 0),
+    ("1M D=512", 1_000_000, 512),
+)
+ADAM_BYTES_PER_FLOAT = 28  # read p, g, m, v; write p', m', v'
+
+
+def adam_inputs(n, dim, dev):
+    """A train state's Adam inputs at capacity n (SH degree 3, a dim-wide
+    feature field where dim): random parameters, gradients and moments (the
+    second moments positive), the Adam count at 7,000 and the learning
+    rates there. The gradients lie as autograd hands them to the train
+    step: the SH leaves' slices of one [n, 16, 3] gradient, the field's the
+    columns past 3 of an [n, 3 + dim] one. Returns (grads, AdamState,
+    params, lrs)."""
+    import torch
+
+    from semantic_gaussians_torch.core.gaussians import GaussianParams
+    from semantic_gaussians_torch.core.optimizer import AdamState, TrainHyper, lr_tree
+
+    shapes = {"means": (3,), "sh_dc": (1, 3), "sh_rest": (15, 3), "log_scales": (3,),
+              "quats": (4,), "opacity_logits": (1,)}
+    if dim:
+        shapes["features"] = (dim,)
+    gen = torch.Generator(dev).manual_seed(SEED + n + dim)
+
+    def tree(scale, positive=False):
+        leaves = {f: torch.randn((n,) + s, generator=gen, device=dev) * scale
+                  for f, s in shapes.items()}
+        return GaussianParams(**{f: x.abs() if positive else x for f, x in leaves.items()})
+
+    params, grads, mu, nu = tree(1.0), tree(1e-3), tree(1e-4), tree(1e-6, positive=True)
+    sh = torch.cat([grads.sh_dc, grads.sh_rest], dim=1)
+    joined = dict(sh_dc=sh[:, :1], sh_rest=sh[:, 1:])
+    if dim:
+        joined["features"] = torch.cat([grads.means, grads.features], dim=1)[:, 3:]
+    grads = dataclasses.replace(grads, **joined)
+    del sh, joined
+    count = torch.full((), 7000, dtype=torch.int32, device=dev)
+    return (grads, AdamState(count=count, mu=mu, nu=nu), params,
+            lr_tree(TrainHyper(), 2.5, count, features=bool(dim)))
+
+
+def check_adam_case(case, dev):
+    """adam_update on the card against the plain loop on the same inputs,
+    every output leaf bit for bit, one `adam` launch; then the times
+    (device_us) of the kernel, of one launch a leaf, of the whole
+    adam_update (with its bias corrections) and of the plain loop, beside
+    the 28 B-a-float bound."""
+    import torch
+
+    from semantic_gaussians_torch.core import optimizer
+    from semantic_gaussians_torch.core.gaussians import leaf_names
+
+    name, n, dim = case
+    hyper = optimizer.TrainHyper()
+    grads, state, params, lrs = adam_inputs(n, dim, dev)
+    names = leaf_names(params)
+    before = optimizer.ADAM.snapshot()
+    new_params, new_state = optimizer.adam_update(grads, state, params, lrs, hyper)
+    launched = optimizer.ADAM.since(before)[0]
+    if launched != 1:
+        fail(f"adam {name}: {launched} launches, expected 1")
+    bc1, bc2 = optimizer.bias_corrections(state.count + 1, hyper)
+    rows = [tuple(getattr(t, f) for t in (params, grads, state.mu, state.nu, lrs))
+            for f in names]
+    for f, row in zip(names, rows):
+        want = optimizer._adam_plain(*row, bc1, bc2, hyper)
+        got = (getattr(new_params, f), getattr(new_state.mu, f), getattr(new_state.nu, f))
+        for what, a, b in zip(("p", "m", "v"), got, want):
+            if not torch.equal(a, b):
+                fail(f"adam {name}: {f}.{what} differs from the plain loop on "
+                     f"{int((a != b).sum())} of {a.numel()} entries")
+        del want, got
+    del new_params, new_state
+    torch.cuda.empty_cache()
+    floats = sum(row[0].numel() for row in rows)
+    kernel_us = device_us(lambda: optimizer._adam_kernel(rows, bc1, bc2, hyper))
+    per_leaf_us = device_us(lambda: [optimizer._adam_kernel([r], bc1, bc2, hyper) for r in rows])
+    update_us = device_us(lambda: optimizer.adam_update(grads, state, params, lrs, hyper))
+    plain_ms = cuda_ms(lambda: [optimizer._adam_plain(*r, bc1, bc2, hyper) for r in rows], 3)
+    bytes_ = ADAM_BYTES_PER_FLOAT * floats
+    out = dict(n=n, dim=dim, floats=floats, kernel_ms=kernel_us / 1e3,
+               per_leaf_launches_ms=per_leaf_us / 1e3, adam_update_ms=update_us / 1e3,
+               bound_ms=bytes_ / PEAK_BYTES * 1e3, bytes=bytes_,
+               share_of_bound=bytes_ / PEAK_BYTES / (kernel_us / 1e6), plain_ms=plain_ms)
+    print(f"adam {name}: {json.dumps(out)}")
+    return out
+
+
+def adam_phase(dev, card):
+    """Phase 20: the Adam kernel against the plain loop on ADAM_CASES, its
+    times beside the byte bound, and one launch a step under a replay."""
+    import torch
+
+    from semantic_gaussians_torch.core import optimizer
+
+    t0 = time.perf_counter()
+    cases = {}
+    for case in ADAM_CASES:
+        cases[case[0]] = check_adam_case(case, dev)
+        torch.cuda.empty_cache()
+    got, captures, replays = replay_launches(dev, [optimizer.ADAM])
+    if got["adam"] != 10 or replays != 2 or captures != 1:
+        fail(f"adam launches over one 10-step replay: {got} "
+             f"(captures {captures}, replays {replays})")
+    graph = dict(replay_launches=got["adam"], captures=captures, replays=replays)
+    wall = time.perf_counter() - t0
+    print(json.dumps({"card": card, "adam": dict(cases=cases, graph=graph, wall_s=wall)}))
+    return dict(cases=cases, graph=graph, wall_s=wall)
+
+
+def phase_only(run):
+    """`python3 chip_smoke.py --projection` / `--adam`: builds the kernels
+    and runs phase 19 / 20 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5021,7 +5157,7 @@ def projection_only():
     for name, log in kernels.BUILD_LOG.items():
         regs = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
         print(f"  {name}: {regs}")
-    projection_phase(torch.device("cuda:0"), card)
+    run(torch.device("cuda:0"), card)
     print(card_line())
 
 
@@ -5051,6 +5187,8 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--segsum-replay"]:
         segsum_replay_only()
     elif sys.argv[1:] == ["--projection"]:
-        projection_only()
+        phase_only(projection_phase)
+    elif sys.argv[1:] == ["--adam"]:
+        phase_only(adam_phase)
     else:
         main()

@@ -11,15 +11,34 @@ torch.optim.Adam's:
   m_hat = m / (1 - b1^t);  v_hat = v / (1 - b2^t)
   p -= lr * m_hat / (sqrt(v_hat) + eps)
 Functional, as the JAX package: each call returns new tensors.
+
+`adam_update` picks its path from the device: on a CUDA device one kernel
+launch updates all leaves (csrc/adam.cu, counter `ADAM`), on the CPU the
+plain loop runs. The kernel takes float32 leaves of one shape and float32
+learning-rate scalars on that device, and raises on anything else; it
+reads each gradient where its rows are contiguous (autograd hands the SH
+leaves and the feature field their gradients as slices of one joined
+gradient) and makes a contiguous copy of anything else, such as the column
+views that gathering a sharded state leaves. Both paths do the same
+float32 operations in the same order, so they agree bit for bit.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
+from ..ops import kernels
 from ..utils.schedules import expon_lr_schedule
 from .gaussians import GaussianParams, leaf_names, tree_map
+
+ADAM = kernels.LaunchCounter("adam")  # one a launch of csrc/adam.cu
+_P = ctypes.c_void_p
+_F = ctypes.c_float
+_SIGNATURES = {
+    "sgt_adam": (_P, _P, ctypes.c_int, _P, _P, _F, _F, _F, _F, _F, _P),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,22 +110,97 @@ def adam_update(
 ):
     """One Adam step: (new params, new AdamState)."""
     count = state.count + 1
-    t = count.to(torch.float32)
-    b1, b2 = hyper.beta1, hyper.beta2
-    bc1 = 1.0 - torch.pow(torch.full((), b1, dtype=torch.float32, device=t.device), t)
-    bc2 = 1.0 - torch.pow(torch.full((), b2, dtype=torch.float32, device=t.device), t)
-    new_p, new_m, new_v = {}, {}, {}
-    for f in leaf_names(params):
-        p, g = getattr(params, f), getattr(grads, f)
-        m = b1 * getattr(state.mu, f) + (1 - b1) * g
-        v = b2 * getattr(state.nu, f) + (1 - b2) * g * g
-        m_hat = m / bc1
-        v_hat = v / bc2
-        new_p[f] = p - getattr(lrs, f) * m_hat / (torch.sqrt(v_hat) + hyper.eps)
-        new_m[f], new_v[f] = m, v
+    bc1, bc2 = bias_corrections(count, hyper)
+    names = leaf_names(params)
+    rows = [tuple(getattr(tree, f) for tree in (params, grads, state.mu, state.nu, lrs))
+            for f in names]
+    if bc1.device.type == "cuda":
+        out = _adam_kernel(rows, bc1, bc2, hyper)
+    else:
+        out = [_adam_plain(*row, bc1, bc2, hyper) for row in rows]
+    new_p, new_m, new_v = ({f: o[k] for f, o in zip(names, out)} for k in range(3))
     return GaussianParams(**new_p), AdamState(
         count=count, mu=GaussianParams(**new_m), nu=GaussianParams(**new_v)
     )
+
+
+def bias_corrections(count: torch.Tensor, hyper: TrainHyper):
+    """1 - b1^t and 1 - b2^t at step t = `count` (float32 scalars on its
+    device)."""
+    t = count.to(torch.float32)
+    return tuple(1.0 - torch.pow(torch.full((), b, dtype=torch.float32, device=t.device), t)
+                 for b in (hyper.beta1, hyper.beta2))
+
+
+def _adam_plain(p, g, mu, nu, lr, bc1, bc2, hyper: TrainHyper):
+    """One leaf's Adam step in torch ops: (p', m', v')."""
+    b1, b2 = hyper.beta1, hyper.beta2
+    m = b1 * mu + (1 - b1) * g
+    v = b2 * nu + (1 - b2) * g * g
+    m_hat = m / bc1
+    v_hat = v / bc2
+    return p - lr * m_hat / (torch.sqrt(v_hat) + hyper.eps), m, v
+
+
+def _row_stride(x: torch.Tensor):
+    """x's stride along its first dimension where each of its rows (what
+    follows the first index) is contiguous, else None."""
+    want = 1
+    for size, stride in zip(reversed(x.shape[1:]), reversed(x.stride()[1:])):
+        if size != 1 and stride != want:
+            return None
+        want *= size
+    return x.stride(0) if x.shape[0] > 1 else want
+
+
+def _kernel_rows(rows, dev: torch.device):
+    """The leaves as the kernel reads them: [(p, g, m, v, lr, g's row
+    stride)], p, m and v contiguous and each g with contiguous rows (as it
+    is where it has them, else a contiguous copy). Raises unless every p, g,
+    m, v is a float32 tensor of p's shape ([N, ...]) on `dev` and every
+    learning rate a float32 scalar there."""
+    out = []
+    for p, g, mu, nu, lr in rows:
+        if not (isinstance(lr, torch.Tensor) and lr.numel() == 1
+                and lr.dtype == torch.float32 and lr.device == dev):
+            raise ValueError(f"adam_update on {dev} wants float32 learning-rate scalars there")
+        for x in (p, g, mu, nu):
+            if not (x.dtype == torch.float32 and x.device == dev and x.shape == p.shape
+                    and x.dim() > 0):
+                raise ValueError(f"adam_update on {dev} wants float32 leaves of one shape "
+                                 f"[N, ...] there, got {x.dtype} {tuple(x.shape)} on "
+                                 f"{x.device} beside {tuple(p.shape)}")
+        stride = _row_stride(g)
+        if stride is None:
+            g = g.contiguous()
+            stride = _row_stride(g)
+        out.append((p.contiguous(), g, mu.contiguous(), nu.contiguous(), lr, stride))
+    return out
+
+
+def _adam_kernel(rows, bc1, bc2, hyper: TrainHyper):
+    """All leaves' Adam step in one launch of csrc/adam.cu: [(p', m', v')]
+    a leaf, fresh contiguous tensors."""
+    dev = bc1.device
+    out, ptrs, sizes = [], [], []
+    for p, g, mu, nu, lr, stride in _kernel_rows(rows, dev):
+        new = tuple(torch.empty_like(p) for _ in range(3))
+        out.append(new)
+        ptrs += [x.data_ptr() for x in (p, g, mu, nu, *new, lr)]
+        n = p.numel()
+        sizes += [n, n // p.shape[0] if n else 1, stride]
+    b1, b2 = hyper.beta1, hyper.beta2
+    lib = kernels.load("adam", _SIGNATURES)
+    with kernels.on_device(dev):
+        err = lib.sgt_adam(
+            (_P * len(ptrs))(*ptrs), (ctypes.c_longlong * len(sizes))(*sizes), len(rows),
+            bc1.data_ptr(), bc2.data_ptr(), b1, 1 - b1, b2, 1 - b2, hyper.eps,
+            kernels.current_stream(dev),
+        )
+    kernels.check(lib, err, "sgt_adam")
+    if any(sizes[::3]):  # else nothing was launched
+        ADAM.add()
+    return out
 
 
 def zero_moments_at(state: AdamState, slot_mask: torch.Tensor) -> AdamState:

@@ -39,7 +39,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
 )
 SOURCES = ("expand", "composite_fwd", "composite_bwd", "segsum", "segsum_probe", "phase",
-           "projection")
+           "projection", "adam")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
