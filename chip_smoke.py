@@ -5094,9 +5094,9 @@ def check_adam_case(case, dev):
         fail(f"adam {name}: {launched} launches, expected 1")
     bc1, bc2 = optimizer.bias_corrections(state.count + 1, hyper)
     rows = [tuple(getattr(t, f) for t in (params, grads, state.mu, state.nu, lrs))
-            for f in names]
+            + (hyper.eps,) for f in names]
     for f, row in zip(names, rows):
-        want = optimizer._adam_plain(*row, bc1, bc2, hyper)
+        want = optimizer._adam_plain(*row[:5], bc1, bc2, hyper)
         got = (getattr(new_params, f), getattr(new_state.mu, f), getattr(new_state.nu, f))
         for what, a, b in zip(("p", "m", "v"), got, want):
             if not torch.equal(a, b):
@@ -5109,7 +5109,7 @@ def check_adam_case(case, dev):
     kernel_us = device_us(lambda: optimizer._adam_kernel(rows, bc1, bc2, hyper))
     per_leaf_us = device_us(lambda: [optimizer._adam_kernel([r], bc1, bc2, hyper) for r in rows])
     update_us = device_us(lambda: optimizer.adam_update(grads, state, params, lrs, hyper))
-    plain_ms = cuda_ms(lambda: [optimizer._adam_plain(*r, bc1, bc2, hyper) for r in rows], 3)
+    plain_ms = cuda_ms(lambda: [optimizer._adam_plain(*r[:5], bc1, bc2, hyper) for r in rows], 3)
     bytes_ = ADAM_BYTES_PER_FLOAT * floats
     out = dict(n=n, dim=dim, floats=floats, kernel_ms=kernel_us / 1e3,
                per_leaf_launches_ms=per_leaf_us / 1e3, adam_update_ms=update_us / 1e3,

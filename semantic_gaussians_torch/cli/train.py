@@ -1,4 +1,5 @@
-"""3DGS training entry point (port of the root train.py), RGB or Feature 3DGS.
+"""3DGS training entry point (port of the root train.py): RGB, Feature 3DGS or
+Gaussian Grouping.
 
 Usage:
     python -m semantic_gaussians_torch.cli.train \\
@@ -28,6 +29,19 @@ name>/0.pt` ({feat, mask_full}, pipelines.fusion.save_fused_features), so
 that `fusion.out_dir=<that features dir>` hands them to the eval CLI (mode
 2d) and the viewer. Feature fields train on one device.
 
+With `model.num_objects=D` (> 0) it trains Gaussian Grouping (Ye et al.,
+ECCV 2024; core.grouping): a D-channel identity field (their 16), started
+at RGB2SH of a uniform draw and trained at `train.feature_lr` as theirs,
+composited with the colour, a classifier of `train.num_classes` classes
+(torch's Conv2d init, its own Adam at their fixed lr 5e-4 and eps 1e-8),
+the cross-entropy against each view's object map
+(`train.object_dir/<image name>.png`, 8-bit ids, resized nearest to the
+view, held on the device) and every `train.reg3d_interval`-th iteration the
+3D term (`train.lambda_3d`, `reg3d_k`, `reg3d_max_points`, `reg3d_sample`;
+draws keyed by `pipeline.seed`). Beside each PLY it writes
+`classifier.pt` ({weight, bias}) and `identity.pt` ({identity}: the
+field's rows in the PLY's order). One device only.
+
 With `pipeline.distributed=true` every process is one rank (a card, or a
 CPU process with `--device cpu`, which runs on gloo): the process group is
 made first (parallel.multihost.init_distributed, from the SGTPU_* or a
@@ -50,6 +64,7 @@ import torch
 from ..config.config import load_config, pretty
 from ..core.densify import DensifyConfig
 from ..core.gaussians import init_from_pcd, num_alive, with_feature_field
+from ..core.grouping import GroupingConfig, identity_init, init_classifier
 from ..models.predictors import PrecomputedFeatureProvider
 from ..core.optimizer import TrainHyper
 from ..io.ply import save_gaussian_ply
@@ -88,6 +103,27 @@ def load_teacher_maps(feature_dir, infos, dim: int, device) -> torch.Tensor:
     for i, c in enumerate(infos):
         out[i] = torch.from_numpy(prov.extract_image_feature(c.image_path, (w, h)))
     return out
+
+
+def load_object_maps(object_dir, infos, device) -> torch.Tensor:
+    """[V, H, W] uint8 on `device`: each camera's object map,
+    `<object_dir>/<image name>.png` (8-bit ids; a colour PNG's first
+    channel), resized nearest to the camera's size."""
+    from PIL import Image
+
+    out = torch.empty((len(infos), infos[0].height, infos[0].width), dtype=torch.uint8)
+    if any((c.width, c.height) != (infos[0].width, infos[0].height) for c in infos):
+        raise ValueError("Gaussian Grouping's training views must share one size")
+    for i, c in enumerate(infos):
+        path = pathlib.Path(object_dir) / f"{c.image_name}.png"
+        if not path.exists():
+            raise FileNotFoundError(f"no object map for {c.image_name} in {object_dir}")
+        img = Image.open(path)
+        if img.size != (c.width, c.height):
+            img = img.resize((c.width, c.height), Image.NEAREST)
+        ids = np.array(img)
+        out[i] = torch.from_numpy(ids if ids.ndim == 2 else ids[..., 0])
+    return out.to(device)
 
 
 def main(argv=None) -> dict:
@@ -144,14 +180,29 @@ def _train(cfg, t, device, distributed) -> dict:
         capacity=cfg.model.get("capacity"), device=device,
     )
     feature_dim = int(cfg.model.get("feature_dim") or 0)
-    teacher = None
+    num_objects = int(cfg.model.get("num_objects") or 0)
+    teacher = object_ids = classifier = grouping = None
+    if feature_dim and num_objects:
+        raise ValueError("model.feature_dim and model.num_objects: one field, not both")
+    if (feature_dim or num_objects) and distributed:
+        raise ValueError("a feature or identity field trains on one device, not distributed")
     if feature_dim:
-        if distributed:
-            raise ValueError("model.feature_dim > 0 trains on one device, not distributed")
         params = with_feature_field(params, feature_dim)
         teacher = load_teacher_maps(t.feature_dir, scene.train_cameras, feature_dim, device)
         print(f"teacher maps {tuple(teacher.shape)} {teacher.dtype} from {t.feature_dir}")
-    state = init_train_state(params, alive)
+    if num_objects:
+        feature_dim = num_objects
+        grouping = GroupingConfig(
+            num_classes=int(t.get("num_classes", 256)), lambda_3d=float(t.get("lambda_3d", 2.0)),
+            reg3d_interval=int(t.get("reg3d_interval", 2)), reg3d_k=int(t.get("reg3d_k", 5)),
+            reg3d_max_points=int(t.get("reg3d_max_points", 300_000)),
+            reg3d_sample=int(t.get("reg3d_sample", 1000)), seed=seed)
+        params = with_feature_field(params, num_objects,
+                                    identity_init(params.capacity, num_objects, generator, device))
+        classifier = init_classifier(grouping.num_classes, num_objects, generator, device)
+        object_ids = load_object_maps(t.object_dir, scene.train_cameras, device)
+        print(f"object maps {tuple(object_ids.shape)} from {t.object_dir}")
+    state = init_train_state(params, alive, classifier)
     tc = TrainConfig(
         hyper=TrainHyper(
             position_lr_init=t.position_lr_init,
@@ -162,7 +213,8 @@ def _train(cfg, t, device, distributed) -> dict:
             opacity_lr=t.opacity_lr,
             scaling_lr=t.scaling_lr,
             rotation_lr=t.rotation_lr,
-            semantic_feature_lr=float(t.get("semantic_feature_lr", 0.001)),
+            semantic_feature_lr=float(t.feature_lr if num_objects
+                                      else t.get("semantic_feature_lr", 0.001)),
         ),
         densify=DensifyConfig(
             grad_threshold=t.densify_grad_threshold, percent_dense=t.percent_dense,
@@ -180,6 +232,7 @@ def _train(cfg, t, device, distributed) -> dict:
         spatial_lr_scale=extent,
         feature_dim=feature_dim,
         lambda_feature=float(t.get("lambda_feature", 1.0)),
+        grouping=grouping,
     )
     out_dir = pathlib.Path(t.get("out_dir") or pathlib.Path("output") / str(t.exp_name))
     if primary:
@@ -217,7 +270,7 @@ def _train(cfg, t, device, distributed) -> dict:
                 state, cameras, tc, generator, extent, num_iters=target - done,
                 backend=backend, log_every=100, pair_budget=budget, iter_offset=done,
                 steps_per_dispatch=int(t.get("steps_per_dispatch", 10)),
-                tb_dir=str(out_dir / "tb_logs"), teacher=teacher,
+                tb_dir=str(out_dir / "tb_logs"), teacher=teacher, object_ids=object_ids,
             )
             summary["logs"].append(log)
             done = target
@@ -229,7 +282,13 @@ def _train(cfg, t, device, distributed) -> dict:
             ply = out_dir / "point_cloud" / f"iteration_{target}" / "point_cloud.ply"
             save_gaussian_ply(ply, state.params, state.alive.cpu().numpy())
             summary["plys"].append(ply)
-            if feature_dim:  # the PLY's rows, in its order
+            if grouping is not None:  # the PLY's rows, in its order
+                cls = state.classifier.params
+                torch.save(dict(weight=cls.weight.cpu(), bias=cls.bias.cpu()),
+                           ply.parent / "classifier.pt")
+                torch.save(dict(identity=state.params.features[state.alive].cpu()),
+                           ply.parent / "identity.pt")
+            elif feature_dim:  # the PLY's rows, in its order
                 feats = ply.parent / "features" / pathlib.Path(cfg.scene.scene_path).name / "0.pt"
                 rows = state.params.features[state.alive].cpu().numpy()
                 save_fused_features(feats, rows, np.ones(rows.shape[0], bool))

@@ -94,37 +94,49 @@ def leaf_names(params: GaussianParams) -> Tuple[str, ...]:
     return FIELDS if params.features is None else FIELDS + (FEATURES,)
 
 
+def _dataclass_of(hint) -> Optional[type]:
+    """The dataclass a field's type names (Optional[X] names X), else None."""
+    if typing.get_origin(hint) is typing.Union:
+        kinds = [a for a in typing.get_args(hint) if a is not type(None)]
+        hint = kinds[0] if len(kinds) == 1 else None
+    return hint if dataclasses.is_dataclass(hint) else None
+
+
 @functools.lru_cache(maxsize=None)
 def _layout(cls) -> Tuple[Tuple[str, Optional[type]], ...]:
     """(name, its type where that is a dataclass too) of each field of `cls`."""
     types = typing.get_type_hints(cls)
-    return tuple((f.name, types[f.name] if dataclasses.is_dataclass(types[f.name]) else None)
-                 for f in dataclasses.fields(cls))
+    return tuple((f.name, _dataclass_of(types[f.name])) for f in dataclasses.fields(cls))
 
 
 def tree_leaves(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     """The tensors (not copies) of a frozen dataclass of tensors by dotted
     path ("params.means", "adam.mu.features", "step"), nested dataclasses
-    flattened in field order; a None field is absent."""
+    flattened in field order; a None field (a tensor or a nested dataclass)
+    is absent."""
     out = {}
     for name, kind in _layout(type(tree)):
         x = getattr(tree, name)
+        if x is None:
+            continue
         if kind is not None:
             out.update(tree_leaves(x, f"{prefix}{name}."))
-        elif x is not None:
+        else:
             out[prefix + name] = x
     return out
 
 
 def tree_build(cls, leaves: Mapping[str, torch.Tensor], prefix: str = ""):
     """The inverse of tree_leaves (the tensors as given); a field with no
-    leaf takes its default."""
+    leaf takes its default (a nested dataclass with no leaf: None)."""
     kw = {}
     for name, kind in _layout(cls):
+        path = prefix + name
         if kind is not None:
-            kw[name] = tree_build(kind, leaves, f"{prefix}{name}.")
-        elif prefix + name in leaves:
-            kw[name] = leaves[prefix + name]
+            if any(k.startswith(path + ".") for k in leaves):
+                kw[name] = tree_build(kind, leaves, path + ".")
+        elif path in leaves:
+            kw[name] = leaves[path]
     return cls(**kw)
 
 

@@ -6,16 +6,19 @@ schedule, f_dc at feature_lr, f_rest at feature_lr / 20, fixed opacity /
 scaling / rotation rates, eps = 1e-15) as an explicit optimizer whose
 moments are GaussianParams-shaped, so densification can zero the moments
 of the slots it touches with a masked update. A feature field (Feature
-3DGS) is one more group, at `semantic_feature_lr`. The update is
-torch.optim.Adam's:
+3DGS, or Gaussian Grouping's identity field) is one more group, at
+`semantic_feature_lr`. Leaves outside GaussianParams (Gaussian Grouping's
+classifier) step in the same call through `adam_update_with`, as rows
+that carry their own rate and eps. The update is torch.optim.Adam's:
   m_hat = m / (1 - b1^t);  v_hat = v / (1 - b2^t)
   p -= lr * m_hat / (sqrt(v_hat) + eps)
 Functional, as the JAX package: each call returns new tensors.
 
-`adam_update` picks its path from the device: on a CUDA device one kernel
-launch updates all leaves (csrc/adam.cu, counter `ADAM`), on the CPU the
-plain loop runs. The kernel takes float32 leaves of one shape and float32
-learning-rate scalars on that device, and raises on anything else; it
+`adam_update_with` picks its path from the device: on a CUDA device one
+kernel launch updates all leaves, each at its own rate and eps
+(csrc/adam.cu, counter `ADAM`), on the CPU the plain loop runs. The
+kernel takes float32 leaves of one shape and float32 learning-rate
+scalars on that device, and raises on anything else; it
 reads each gradient where its rows are contiguous (autograd hands the SH
 leaves and the feature field their gradients as slices of one joined
 gradient) and makes a contiguous copy of anything else, such as the column
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Sequence
 
 import torch
 
@@ -37,7 +41,7 @@ ADAM = kernels.LaunchCounter("adam")  # one a launch of csrc/adam.cu
 _P = ctypes.c_void_p
 _F = ctypes.c_float
 _SIGNATURES = {
-    "sgt_adam": (_P, _P, ctypes.c_int, _P, _P, _F, _F, _F, _F, _F, _P),
+    "sgt_adam": (_P, _P, _P, ctypes.c_int, _P, _P, _F, _F, _F, _F, _P),
 }
 
 
@@ -100,7 +104,6 @@ def adam_init(params: GaussianParams) -> AdamState:
     )
 
 
-@torch.no_grad()
 def adam_update(
     grads: GaussianParams,
     state: AdamState,
@@ -109,19 +112,36 @@ def adam_update(
     hyper: TrainHyper,
 ):
     """One Adam step: (new params, new AdamState)."""
+    new_params, new_state, _ = adam_update_with(grads, state, params, lrs, hyper, ())
+    return new_params, new_state
+
+
+@torch.no_grad()
+def adam_update_with(
+    grads: GaussianParams,
+    state: AdamState,
+    params: GaussianParams,
+    lrs: GaussianParams,
+    hyper: TrainHyper,
+    extra: Sequence[tuple],
+):
+    """adam_update, and in the same launch the leaves of `extra`, each a row
+    (p, g, m, v, lr, eps) at its own rate (a float32 scalar) and eps, which
+    step at the state's count: (new params, new AdamState, [(p', m', v')]
+    a row of `extra`)."""
     count = state.count + 1
     bc1, bc2 = bias_corrections(count, hyper)
     names = leaf_names(params)
     rows = [tuple(getattr(tree, f) for tree in (params, grads, state.mu, state.nu, lrs))
-            for f in names]
+            + (hyper.eps,) for f in names] + list(extra)
     if bc1.device.type == "cuda":
         out = _adam_kernel(rows, bc1, bc2, hyper)
     else:
-        out = [_adam_plain(*row, bc1, bc2, hyper) for row in rows]
+        out = [_adam_plain(*row[:5], bc1, bc2, hyper, eps=row[5]) for row in rows]
     new_p, new_m, new_v = ({f: o[k] for f, o in zip(names, out)} for k in range(3))
-    return GaussianParams(**new_p), AdamState(
-        count=count, mu=GaussianParams(**new_m), nu=GaussianParams(**new_v)
-    )
+    return (GaussianParams(**new_p),
+            AdamState(count=count, mu=GaussianParams(**new_m), nu=GaussianParams(**new_v)),
+            out[len(names):])
 
 
 def bias_corrections(count: torch.Tensor, hyper: TrainHyper):
@@ -132,14 +152,15 @@ def bias_corrections(count: torch.Tensor, hyper: TrainHyper):
                  for b in (hyper.beta1, hyper.beta2))
 
 
-def _adam_plain(p, g, mu, nu, lr, bc1, bc2, hyper: TrainHyper):
-    """One leaf's Adam step in torch ops: (p', m', v')."""
+def _adam_plain(p, g, mu, nu, lr, bc1, bc2, hyper: TrainHyper, eps=None):
+    """One leaf's Adam step in torch ops at `eps` (hyper.eps where None):
+    (p', m', v')."""
     b1, b2 = hyper.beta1, hyper.beta2
     m = b1 * mu + (1 - b1) * g
     v = b2 * nu + (1 - b2) * g * g
     m_hat = m / bc1
     v_hat = v / bc2
-    return p - lr * m_hat / (torch.sqrt(v_hat) + hyper.eps), m, v
+    return p - lr * m_hat / (torch.sqrt(v_hat) + (hyper.eps if eps is None else eps)), m, v
 
 
 def _row_stride(x: torch.Tensor):
@@ -154,13 +175,13 @@ def _row_stride(x: torch.Tensor):
 
 
 def _kernel_rows(rows, dev: torch.device):
-    """The leaves as the kernel reads them: [(p, g, m, v, lr, g's row
-    stride)], p, m and v contiguous and each g with contiguous rows (as it
-    is where it has them, else a contiguous copy). Raises unless every p, g,
-    m, v is a float32 tensor of p's shape ([N, ...]) on `dev` and every
-    learning rate a float32 scalar there."""
+    """The leaves (p, g, m, v, lr, ...) as the kernel reads them: [(p, g,
+    m, v, lr, g's row stride)], p, m and v contiguous and each g with
+    contiguous rows (as it is where it has them, else a contiguous copy).
+    Raises unless every p, g, m, v is a float32 tensor of p's shape ([N,
+    ...]) on `dev` and every learning rate a float32 scalar there."""
     out = []
-    for p, g, mu, nu, lr in rows:
+    for p, g, mu, nu, lr, *_ in rows:
         if not (isinstance(lr, torch.Tensor) and lr.numel() == 1
                 and lr.dtype == torch.float32 and lr.device == dev):
             raise ValueError(f"adam_update on {dev} wants float32 learning-rate scalars there")
@@ -179,8 +200,8 @@ def _kernel_rows(rows, dev: torch.device):
 
 
 def _adam_kernel(rows, bc1, bc2, hyper: TrainHyper):
-    """All leaves' Adam step in one launch of csrc/adam.cu: [(p', m', v')]
-    a leaf, fresh contiguous tensors."""
+    """All leaves' Adam step in one launch of csrc/adam.cu, each row (p, g,
+    m, v, lr, eps): [(p', m', v')] a leaf, fresh contiguous tensors."""
     dev = bc1.device
     out, ptrs, sizes = [], [], []
     for p, g, mu, nu, lr, stride in _kernel_rows(rows, dev):
@@ -189,13 +210,14 @@ def _adam_kernel(rows, bc1, bc2, hyper: TrainHyper):
         ptrs += [x.data_ptr() for x in (p, g, mu, nu, *new, lr)]
         n = p.numel()
         sizes += [n, n // p.shape[0] if n else 1, stride]
+    eps = [row[5] for row in rows]
     b1, b2 = hyper.beta1, hyper.beta2
     lib = kernels.load("adam", _SIGNATURES)
     with kernels.on_device(dev):
         err = lib.sgt_adam(
-            (_P * len(ptrs))(*ptrs), (ctypes.c_longlong * len(sizes))(*sizes), len(rows),
-            bc1.data_ptr(), bc2.data_ptr(), b1, 1 - b1, b2, 1 - b2, hyper.eps,
-            kernels.current_stream(dev),
+            (_P * len(ptrs))(*ptrs), (ctypes.c_longlong * len(sizes))(*sizes),
+            (_F * len(eps))(*eps), len(rows), bc1.data_ptr(), bc2.data_ptr(),
+            b1, 1 - b1, b2, 1 - b2, kernels.current_stream(dev),
         )
     kernels.check(lib, err, "sgt_adam")
     if any(sizes[::3]):  # else nothing was launched

@@ -16,9 +16,11 @@
 // What the design does about it:
 // * One launch walks every leaf. The host hands in a table of leaves
 //   (pointers to p, g, m, v, the three outputs and the leaf's learning
-//   rate, and its element count); the grid's blocks are laid out leaf after
-//   leaf, so a small leaf (opacity, 1M floats) runs beside the others and
-//   leaves no tail of its own.
+//   rate, its element count and its eps); the grid's blocks are laid out
+//   leaf after leaf, so a small leaf (opacity, 1M floats) runs beside the
+//   others and leaves no tail of its own. Each leaf has its own eps:
+//   Gaussian Grouping's classifier (weight and bias) is a second Adam, at
+//   eps 1e-8 beside the Gaussians' 1e-15, and steps in the same launch.
 // * A block covers CHUNK consecutive floats of one leaf, PER floats a
 //   thread at a stride of THREADS, so each load and store of a warp is one
 //   coalesced 128-byte line; a thread issues all its loads before any
@@ -47,14 +49,14 @@
 //   m' = b1 * m + (1 - b1) * g
 //   v' = b2 * v + ((1 - b2) * g) * g
 //   p' = p - (lr * (m' / bc1)) / (sqrt(v' / bc2) + eps)
-// with the Python constants b1, 1 - b1, b2, 1 - b2 and eps rounded to
-// float32 as torch rounds a scalar operand, so kernel and loop agree bit
-// for bit.
+// with the Python constants b1, 1 - b1, b2, 1 - b2 and each leaf's eps
+// rounded to float32 as torch rounds a scalar operand, so kernel and loop
+// agree bit for bit.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int MAX_LEAVES = 8;
+constexpr int MAX_LEAVES = 12;
 constexpr int THREADS = 256;
 constexpr int PER = 2;                      // floats a thread
 constexpr long long CHUNK = THREADS * PER;  // floats a block
@@ -73,6 +75,7 @@ struct Leaf {
   long long w;      // a row's elements (a slot's floats)
   long long gs;     // the gradient's row stride in elements (w where it is contiguous)
   long long first;  // the leaf's first block in the grid
+  float eps;
 };
 
 struct Table {
@@ -80,7 +83,7 @@ struct Table {
   int count;
   const float* bc1;
   const float* bc2;
-  float b1, omb1, b2, omb2, eps;
+  float b1, omb1, b2, omb2;
 };
 
 __global__ void __launch_bounds__(THREADS) adam_kernel(const Table t) {
@@ -124,7 +127,7 @@ __global__ void __launch_bounds__(THREADS) adam_kernel(const Table t) {
     if (j < L.n) {
       const float m1 = t.b1 * m[u] + t.omb1 * g[u];
       const float v1 = t.b2 * v[u] + (t.omb2 * g[u]) * g[u];
-      L.p_out[j] = p[u] - (lr * (m1 / bc1)) / (sqrtf(v1 / bc2) + t.eps);
+      L.p_out[j] = p[u] - (lr * (m1 / bc1)) / (sqrtf(v1 / bc2) + L.eps);
       L.m_out[j] = m1;
       L.v_out[j] = v1;
     }
@@ -143,12 +146,12 @@ const char* sgt_error_string(int err) {
 // device pointers a leaf, in the order p, g, m, v, p', m', v', lr (lr a
 // float32 scalar); `sizes` (host) three numbers a leaf: its element count,
 // a row's elements w and the gradient's row stride (w where the gradient
-// is contiguous; p, m, v and the outputs are). bc1 and bc2 are float32
-// device scalars. b1, omb1 = 1 - b1, b2, omb2 = 1 - b2 and eps are float32
-// as torch rounds them. Leaves of no elements are skipped. Returns a
-// cudaError_t.
-int sgt_adam(const void* const* ptrs, const long long* sizes, int leaves, const void* bc1,
-             const void* bc2, float b1, float omb1, float b2, float omb2, float eps,
+// is contiguous; p, m, v and the outputs are); `eps` (host) a leaf's eps.
+// bc1 and bc2 are float32 device scalars. b1, omb1 = 1 - b1, b2, omb2 =
+// 1 - b2 and each eps are float32 as torch rounds them. Leaves of no
+// elements are skipped. Returns a cudaError_t.
+int sgt_adam(const void* const* ptrs, const long long* sizes, const float* eps, int leaves,
+             const void* bc1, const void* bc2, float b1, float omb1, float b2, float omb2,
              void* stream) {
   if (leaves < 0 || leaves > MAX_LEAVES) return static_cast<int>(cudaErrorInvalidValue);
   Table t{};
@@ -158,7 +161,6 @@ int sgt_adam(const void* const* ptrs, const long long* sizes, int leaves, const 
   t.omb1 = omb1;
   t.b2 = b2;
   t.omb2 = omb2;
-  t.eps = eps;
   long long blocks = 0;
   for (int i = 0; i < leaves; ++i) {
     const long long n = sizes[3 * i], w = sizes[3 * i + 1], gs = sizes[3 * i + 2];
@@ -179,6 +181,7 @@ int sgt_adam(const void* const* ptrs, const long long* sizes, int leaves, const 
     L.n = n;
     L.w = w;
     L.gs = gs;
+    L.eps = eps[i];
     L.first = blocks;
     blocks += (L.n + CHUNK - 1) / CHUNK;
   }

@@ -17,6 +17,10 @@
   X(loss)             \
   X(feat_loss)        \
   X(feat_loss_bwd)    \
+  X(obj_loss)         \
+  X(reg3d)            \
+  X(reg3d_bwd)        \
+  X(obj_loss_bwd)     \
   X(loss_bwd)         \
   X(composite_bwd)    \
   X(segsum)           \

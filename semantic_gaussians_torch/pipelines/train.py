@@ -27,6 +27,20 @@ the field in one composite (renderer.render's `features`) and adds
 and densify, prune and capacity growth carry the field's rows. The teacher
 maps are one tensor [V, H, W, D] (float16 or float32) in the order of the
 cameras; a graphed chunk takes the indices of its views, not the maps.
+
+Gaussian Grouping (Ye et al., ECCV 2024; core.grouping) trains the same
+field by other terms, where `TrainConfig.grouping` is set: the field
+(`feature_dim` wide, their identity encoding) is composited with the
+colour in the same way, a classifier (the state's `classifier`, with its
+own Adam moments, stepped in the same Adam launch) maps it to class
+logits, and the loss adds L_2d, the cross-entropy against the view's
+integer object map, and on every `reg3d_interval`-th iteration L_3d, the
+KL between the class distributions of sampled Gaussians and their nearest
+neighbours. Iterations count from 1, as theirs do: the step that takes
+`state.step` from s to s + 1 is iteration s + 1. The object maps are one
+uint8 tensor [V, H, W], read inside a graph by view index as the teacher
+maps are; whether a step adds L_3d is part of a graph's body, so the
+first iteration's residue modulo the interval keys a chunk's graph.
 """
 from __future__ import annotations
 
@@ -44,7 +58,25 @@ from ..core.densify import (
     reset_opacity,
 )
 from ..core.gaussians import FEATURES, GaussianParams, num_alive, tree_build, tree_leaves
-from ..core.optimizer import AdamState, TrainHyper, adam_init, adam_update, lr_tree
+from ..core.grouping import (
+    CLASSIFIER_EPS,
+    CLASSIFIER_FIELDS,
+    CLASSIFIER_LR,
+    Classifier,
+    ClassifierState,
+    GroupingConfig,
+    classifier_state,
+    identity_loss,
+    reg3d_loss,
+)
+from ..core.optimizer import (
+    AdamState,
+    TrainHyper,
+    adam_init,
+    adam_update,
+    adam_update_with,
+    lr_tree,
+)
 from ..ops import kernels
 from ..ops.binning import default_pair_budget
 from ..renderer import render
@@ -57,6 +89,9 @@ from ..utils.logging_utils import ChunkClock, TBLogger
 # One count a step that trains a feature field, keyed by the channels its
 # one composite carries (3 + D); graph replays add their steps' counts.
 FEATURE_STEPS = kernels.LaunchCounter("feature_steps")
+# One count a Gaussian Grouping step under key "identity", and one more
+# under "reg3d" where the step adds the 3D term; replays add their steps'.
+GROUPING_STEPS = kernels.LaunchCounter("grouping_steps")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +101,7 @@ class TrainState:
     adam: AdamState
     dstate: DensifyState
     step: torch.Tensor  # [] int32
+    classifier: Optional[ClassifierState] = None  # Gaussian Grouping's, with its moments
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,15 +121,22 @@ class TrainConfig:
     spatial_lr_scale: float = 1.0
     feature_dim: int = 0  # D of a Feature 3DGS field (0: RGB only)
     lambda_feature: float = 1.0  # weight of the feature L1 in the loss
+    # set: the field is Gaussian Grouping's identity field, trained by its
+    # terms (core.grouping) and not by a teacher's L1
+    grouping: Optional[GroupingConfig] = None
 
 
-def init_train_state(params: GaussianParams, alive: torch.Tensor) -> TrainState:
+def init_train_state(params: GaussianParams, alive: torch.Tensor,
+                     classifier: Optional[Classifier] = None) -> TrainState:
+    """A fresh state (zero moments, step 0), with Gaussian Grouping's
+    `classifier` where given."""
     return TrainState(
         params=params,
         alive=alive,
         adam=adam_init(params),
         dstate=DensifyState.zeros(params.capacity, params.device),
         step=torch.zeros((), dtype=torch.int32, device=params.device),
+        classifier=None if classifier is None else classifier_state(classifier),
     )
 
 
@@ -148,22 +191,35 @@ def train_step(
     backend: str = "tiled",
     pair_budget: Optional[int] = None,
     teacher: Optional[torch.Tensor] = None,  # [H, W, D]: the view's teacher map
+    object_ids: Optional[torch.Tensor] = None,  # [H, W] integers: the view's object map
+    reg3d: bool = False,  # Gaussian Grouping: this step adds the 3D term
 ):
     """One optimization step. Returns (new_state, metrics dict of device
     scalars: loss, psnr, num_points, overflow, num_pairs). With a feature
-    field (cfg.feature_dim > 0) `teacher` is the view's 2D feature map."""
+    field (cfg.feature_dim > 0) `teacher` is the view's 2D feature map; with
+    Gaussian Grouping (cfg.grouping) `object_ids` is the view's object map,
+    `reg3d` says whether this step adds L_3d, and the metrics add `knn`, the
+    3D term's neighbour rows [m, k] (-1 on a step without it)."""
     params = state.params
     dev = params.device
+    group = cfg.grouping
     if params.feature_dim != cfg.feature_dim:
         raise ValueError(f"the state's feature field has {params.feature_dim} channels, "
                          f"the config {cfg.feature_dim}")
-    if cfg.feature_dim and (teacher is None or teacher.shape[-1] != cfg.feature_dim):
+    if group is not None:
+        if state.classifier is None or object_ids is None:
+            raise ValueError("Gaussian Grouping needs a classifier in the state and the "
+                             "view's object map")
+    elif cfg.feature_dim and (teacher is None or teacher.shape[-1] != cfg.feature_dim):
         raise ValueError(f"a feature field of {cfg.feature_dim} channels needs a teacher map "
                          f"of as many, got {None if teacher is None else tuple(teacher.shape)}")
     tracing.phase("project", dev)
     leaves = {f: x.detach().requires_grad_(True) for f, x in tree_leaves(params).items()}
     offset = torch.zeros((params.capacity, 2), dtype=torch.float32, device=dev,
                          requires_grad=True)
+    cls = {} if group is None else {
+        f: getattr(state.classifier.params, f).detach().requires_grad_(True)
+        for f in CLASSIFIER_FIELDS}
     out = render(
         camera, GaussianParams(**leaves), alive=state.alive, bg=bg,
         active_sh_degree=active_sh_degree, mean2d_offset=offset, backend=backend,
@@ -173,7 +229,29 @@ def train_step(
     pred, gt = _crop(crop, out["render"], camera.image)
     tracing.phase("loss", dev)
     loss = photometric_loss(pred, gt, cfg.lambda_dssim)
-    if cfg.feature_dim:
+    knn = None
+    if group is not None:
+        GROUPING_STEPS.add(1, key="identity")
+        tracing.phase("obj_loss", dev)
+        # the identity terms' backward runs first; the photometric one opens loss_bwd
+        ident = tracing.phase_in_backward(out["feature"], "loss_bwd")
+        ident, ids = _crop(crop, ident, object_ids)
+        classifier = Classifier(**cls)
+        l2d = identity_loss(ident, ids, classifier)
+        if reg3d:
+            GROUPING_STEPS.add(1, key="reg3d")
+            loss = loss + tracing.phase_in_backward(l2d, "obj_loss_bwd")
+            tracing.phase("reg3d", dev)
+            l3d, knn = reg3d_loss(leaves[FEATURES], classifier, params.means, state.alive,
+                                  state.step, group)
+            loss = loss + l3d
+            tracing.phase("reg3d_bwd", dev)
+        else:
+            loss = loss + l2d
+            knn = torch.full(reg3d_shape(group, params.capacity), -1, dtype=torch.int64,
+                             device=dev)
+            tracing.phase("obj_loss_bwd", dev)
+    elif cfg.feature_dim:
         FEATURE_STEPS.add(1, key=3 + cfg.feature_dim)
         tracing.phase("feat_loss", dev)
         # the feature term's backward runs first; the photometric one opens loss_bwd
@@ -183,12 +261,14 @@ def train_step(
         tracing.phase("feat_loss_bwd", dev)
     else:
         tracing.phase("loss_bwd", dev)
-    grads = torch.autograd.grad(loss, list(leaves.values()) + [offset])
+    grads = torch.autograd.grad(loss, list(leaves.values()) + [offset] + list(cls.values()))
     tracing.phase("update", dev)
-    gparams = GaussianParams(**dict(zip(leaves, grads[:-1])))
-    dstate = add_stats(state.dstate, grads[-1], out["radii"], camera.width, camera.height)
+    gparams = GaussianParams(**dict(zip(leaves, grads[:len(leaves)])))
+    dstate = add_stats(state.dstate, grads[len(leaves)], out["radii"], camera.width,
+                       camera.height)
     lrs = lr_tree(cfg.hyper, cfg.spatial_lr_scale, state.step, features=bool(cfg.feature_dim))
-    new_params, new_adam = adam_update(gparams, state.adam, params, lrs, cfg.hyper)
+    new_params, new_adam, new_cls = adam_step(state, gparams, grads[len(leaves) + 1:], lrs,
+                                              cfg.hyper)
     with torch.no_grad():
         metrics = dict(
             loss=loss.detach(),
@@ -197,11 +277,37 @@ def train_step(
             overflow=out["overflow"],
             num_pairs=out["num_pairs"],
         )
+    if knn is not None:
+        metrics["knn"] = knn
     return (
         dataclasses.replace(state, params=new_params, adam=new_adam, dstate=dstate,
-                            step=state.step + 1),
+                            step=state.step + 1, classifier=new_cls),
         metrics,
     )
+
+
+def adam_step(state: TrainState, grads: GaussianParams, classifier_grads, lrs: GaussianParams,
+              hyper: TrainHyper):
+    """Adam over the state's Gaussian leaves and, where the state has a
+    classifier, its two leaves (`classifier_grads`, in CLASSIFIER_FIELDS'
+    order) at CLASSIFIER_LR and CLASSIFIER_EPS, in one launch: (params,
+    AdamState, ClassifierState or None)."""
+    if state.classifier is None:
+        return adam_update(grads, state.adam, state.params, lrs, hyper) + (None,)
+    cs = state.classifier
+    lr = torch.full((), CLASSIFIER_LR, dtype=torch.float32, device=state.params.device)
+    rows = [(getattr(cs.params, f), g, getattr(cs.mu, f), getattr(cs.nu, f), lr, CLASSIFIER_EPS)
+            for f, g in zip(CLASSIFIER_FIELDS, classifier_grads)]
+    new_params, new_adam, out = adam_update_with(grads, state.adam, state.params, lrs, hyper,
+                                                 rows)
+    return new_params, new_adam, ClassifierState(
+        *(Classifier(*(o[k] for o in out)) for k in range(3)))
+
+
+def reg3d_shape(group: GroupingConfig, capacity: int) -> tuple:
+    """(m, k): the 3D term's samples and neighbours at `capacity`."""
+    cand = min(group.reg3d_max_points, capacity)
+    return min(group.reg3d_sample, cand), min(group.reg3d_k, cand)
 
 
 _CAMERA_TENSORS = ("world_view", "full_proj", "camera_center", "image")
@@ -247,41 +353,54 @@ def train_scan_step(
     pair_budget: Optional[int] = None,
     runner: Optional[GraphRunner] = None,
     teacher: Optional[torch.Tensor] = None,  # [V, H, W, D] teacher maps of every view
-    views: Optional[torch.Tensor] = None,  # [K] int64: each step's row of `teacher`
+    views: Optional[torch.Tensor] = None,  # [K] int64: each step's row of the map banks
+    object_ids: Optional[torch.Tensor] = None,  # [V, H, W] object maps of every view
+    iteration: int = 1,  # the global iteration of the chunk's first step
 ):
     """K dependent train steps in one dispatch: on a CUDA device one replay
     of a graph that captured the K steps (`runner` caches the graphs; pass
     the same runner for every chunk, or each call captures anew), on the
     CPU the K steps eagerly. Returns (state, metrics stacked [K]). With a
     feature field, step j's teacher map is row views[j] of `teacher`, read
-    inside the graph (the maps are not copied into its inputs).
+    inside the graph (the maps are not copied into its inputs); with
+    Gaussian Grouping so is its object map, of `object_ids`, and step j adds
+    the 3D term where iteration + j falls on the term's interval.
 
     On CUDA the returned state's tensors are the runner's static buffers,
     rewritten by the next replay of the same graph; the state handed in is
     left as it was. The statics (K, SH degree, budget, backend, config,
-    camera statics and the state's shapes) key the graph, so a chunk that
-    changes any of them is captured anew."""
+    camera statics, the state's shapes and, with Gaussian Grouping, the
+    first iteration's residue modulo the 3D term's interval) key the
+    graph, so a chunk that changes any of them is captured anew."""
     k = bgs.shape[0]
     inputs = dict(camera_tensors(cam_stack), bgs=bgs)
-    if teacher is not None:
+    if teacher is not None or object_ids is not None:
         inputs["views"] = views
+    group = cfg.grouping
+
+    def row(bank, inp, j):
+        return None if bank is None else torch.index_select(bank, 0, inp["views"][j:j + 1])[0]
 
     def body(carry, inp):
         st = tree_build(TrainState, carry)
         per_step = []
         for j in range(k):
-            tj = (None if teacher is None
-                  else torch.index_select(teacher, 0, inp["views"][j:j + 1])[0])
             st, m = train_step(st, camera_at(cam_stack, inp, j), inp["bgs"][j], cfg,
-                               active_sh_degree, backend, pair_budget, teacher=tj)
+                               active_sh_degree, backend, pair_budget,
+                               teacher=row(teacher, inp, j), object_ids=row(object_ids, inp, j),
+                               reg3d=group is not None and group.reg3d_at(iteration + j))
             per_step.append(m)
         return tree_leaves(st), {name: torch.stack([m[name] for m in per_step])
                                  for name in per_step[0]}
 
+    def bank(x):
+        return None if x is None else (x.data_ptr(), tuple(x.shape), x.dtype)
+
     runner = runner or GraphRunner(state.params.device)
-    bank = None if teacher is None else (teacher.data_ptr(), tuple(teacher.shape), teacher.dtype)
+    phase = None if group is None else iteration % group.reg3d_interval
     key = ("train", k, active_sh_degree, pair_budget, backend, cfg,
-           camera_statics(cam_stack), bank, state.params.capacity)
+           camera_statics(cam_stack), bank(teacher), bank(object_ids), phase,
+           state.params.capacity)
     # chunks that differ only in K share one warm-up
     carry, metrics = runner.run(key, body, tree_leaves(state), inputs, key[:1] + key[2:])
     return tree_build(TrainState, carry), metrics
@@ -315,12 +434,14 @@ def opacity_reset_step(state: TrainState) -> TrainState:
 
 
 def grow_capacity(state: TrainState, factor: int = 2) -> TrainState:
-    """Capacity growth: every tensor whose leading dim is the capacity is
-    padded; new slots are dead, with opacity logit -20 and zero moments."""
+    """Capacity growth: every tensor of a Gaussian's rows (the parameters,
+    their moments, `alive` and the densify statistics; not the classifier)
+    is padded; new slots are dead, with opacity logit -20 and zero
+    moments."""
     cap = state.params.capacity
 
     def pad(name, x):
-        if x.dim() == 0 or x.shape[0] != cap:
+        if x.dim() == 0 or name.startswith("classifier."):
             return x
         fill = -20.0 if name == "params.opacity_logits" else 0
         out = torch.full((cap * factor,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
@@ -377,6 +498,7 @@ def train_loop(
     tb_dir: Optional[str] = None,
     runner: Optional[GraphRunner] = None,
     teacher: Optional[torch.Tensor] = None,
+    object_ids: Optional[torch.Tensor] = None,
 ):
     """Single-device driver, the JAX package's train_loop step for step:
     cameras in the order `np.random.default_rng(shuffle_seed)` permutes
@@ -405,7 +527,9 @@ def train_loop(
     runner to all of them and captures each set of statics once, as the
     JAX package's jit cache outlives a call; by default every call makes
     its own. With a feature field, `teacher` [V, H, W, D] holds the 2D
-    teacher map of each of the V `cameras`, in their order.
+    teacher map of each of the V `cameras`, in their order; with Gaussian
+    Grouping (cfg.grouping), `object_ids` [V, H, W] (uint8) their object
+    maps.
 
     Returns (state, log): log["loss"] / ["psnr"] / ["overflow"] /
     ["num_pairs"] are device tensors with one entry per step, log["budget"]
@@ -414,7 +538,8 @@ def train_loop(
     chunk, log["densify"] a list of (iteration, alive count after, dropped)
     per densify, log["history"] the (iteration, metrics as floats) printed
     every `log_every` steps, and log["graphs"] the runner's captures and
-    replays."""
+    replays; with Gaussian Grouping log["knn"] holds the 3D term's neighbour
+    rows of the last chunk's steps [n, m, k] (-1 on steps without it)."""
     iters = num_iters or cfg.iterations
     dev = state.params.device
     bg = torch.ones(3, device=dev) if cfg.white_background else torch.zeros(3, device=dev)
@@ -431,7 +556,10 @@ def train_loop(
     log = {k: torch.zeros(iters, dtype=torch.float32, device=dev) for k in keys}
     log.update(budget=[], cameras=[], chunks=[], densify=[], history=[])
 
-    if cfg.feature_dim and (teacher is None or teacher.shape[0] != len(cameras)):
+    if cfg.grouping is not None:
+        if object_ids is None or object_ids.shape[0] != len(cameras):
+            raise ValueError("Gaussian Grouping needs one object map a camera")
+    elif cfg.feature_dim and (teacher is None or teacher.shape[0] != len(cameras)):
         raise ValueError("a feature field needs one teacher map a camera")
 
     def pick_view():
@@ -455,9 +583,11 @@ def train_loop(
             stack = stack_camera_chunk(cams) if steps_per_dispatch > 1 else None
         with clock.chunk(n):
             if stack is not None:
-                views = None if teacher is None else _to_device(picked, dev)
+                banked = teacher is not None or object_ids is not None
+                views = _to_device(picked, dev) if banked else None
                 state, per = train_scan_step(state, stack, bgs, cfg, sh_deg, backend,
-                                             pair_budget, runner, teacher, views)
+                                             pair_budget, runner, teacher, views,
+                                             object_ids, s)
             else:
                 with tracing.span("sgt.train_step.eager"):
                     steps = []
@@ -465,7 +595,9 @@ def train_loop(
                         state, m = train_step(
                             state, cam, bgs[j], cfg, sh_deg, backend=backend,
                             pair_budget=pair_budget,
-                            teacher=None if teacher is None else teacher[picked[j]])
+                            teacher=None if teacher is None else teacher[picked[j]],
+                            object_ids=None if object_ids is None else object_ids[picked[j]],
+                            reg3d=cfg.grouping is not None and cfg.grouping.reg3d_at(s + j))
                         steps.append(m)
                     per = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
                     tracing.phase("between", dev)
@@ -476,6 +608,8 @@ def train_loop(
             log["chunks"].append((s, n))
             for k in keys:
                 log[k][rel:rel + n] = per[k]
+            if "knn" in per:
+                log["knn"] = per["knn"]
         if adaptive and it % 10 == 0:
             with tracing.span("sgt.loop.budget"):
                 skip_record = False

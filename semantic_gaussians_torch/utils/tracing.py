@@ -17,7 +17,12 @@ The phases of a train step, in stream order (PHASES): `project` (the
 leaves, projection and SH colour), `bin` (sort, searchsorted, expand, the
 packed geometry), `composite` (the forward kernel, untiling), `loss` (L1
 and SSIM), with a feature field (Feature 3DGS) `feat_loss` (the feature
-L1) and `feat_loss_bwd` (its backward, which runs first), `loss_bwd` (the
+L1) and `feat_loss_bwd` (its backward, which runs first), with Gaussian
+Grouping's identity field `obj_loss` (the classifier over the rendered
+identity and the cross-entropy), on the steps with the 3D term `reg3d`
+(the draws, the neighbours, the classifier over every Gaussian, the KL)
+and `reg3d_bwd` (its backward, which runs first), then `obj_loss_bwd`
+(the cross-entropy's backward), `loss_bwd` (the
 photometric backward and the untiling's), `composite_bwd`
 (the backward kernel and the background's gradient), `segsum` (pair rows
 to Gaussians), `project_bwd` (the packed geometry's, projection's and SH
@@ -39,8 +44,9 @@ import torch
 
 from ..ops import kernels
 
-PHASES = ("project", "bin", "composite", "loss", "feat_loss", "feat_loss_bwd", "loss_bwd",
-          "composite_bwd", "segsum", "project_bwd", "update", "carry", "between")
+PHASES = ("project", "bin", "composite", "loss", "feat_loss", "feat_loss_bwd", "obj_loss",
+          "reg3d", "reg3d_bwd", "obj_loss_bwd", "loss_bwd", "composite_bwd", "segsum",
+          "project_bwd", "update", "carry", "between")
 _INDEX = {name: i for i, name in enumerate(PHASES)}
 _SIGNATURES = {"sgt_phase": (ctypes.c_int, ctypes.c_void_p)}
 _NULL = contextlib.nullcontext()

@@ -25,8 +25,9 @@ import torch
 
 from semantic_gaussians_torch.core import optimizer
 from semantic_gaussians_torch.core.gaussians import GaussianParams, leaf_names
+from semantic_gaussians_torch.core.grouping import CLASSIFIER_EPS, CLASSIFIER_FIELDS, CLASSIFIER_LR
 from semantic_gaussians_torch.core.optimizer import (
-    ADAM, AdamState, TrainHyper, adam_update, bias_corrections, lr_tree,
+    ADAM, AdamState, TrainHyper, adam_update, adam_update_with, bias_corrections, lr_tree,
 )
 from semantic_gaussians_torch.ops import kernels
 
@@ -350,6 +351,67 @@ def test_the_kernel_in_a_replayed_graph_reads_each_replay_s_values(dim):
 
 
 def test_the_kernel_s_table_holds_every_leaf_a_state_may_carry():
+    """Every GaussianParams leaf and Gaussian Grouping's classifier (two
+    leaves) in one launch."""
     src = (kernels.CSRC / "adam.cu").read_text()
     table = int(re.search(r"constexpr int MAX_LEAVES = (\d+);", src).group(1))
-    assert len(dataclasses.fields(GaussianParams)) <= table
+    assert len(dataclasses.fields(GaussianParams)) + len(CLASSIFIER_FIELDS) <= table
+
+
+def _classifier(dev, seed):
+    """Rows (p, g, m, v) of the classifier's two leaves, 256 x 16 and 256,
+    the gradients and moments so small (g ~ 1e-9, sqrt(v) ~ 1e-10) that
+    eps 1e-8 sets the step."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def leaf(shape):
+        p, g, m = (torch.randn(shape, generator=gen) * s for s in (1.0, 1e-9, 1e-10))
+        v = (torch.randn(shape, generator=gen) * 1e-20).abs()
+        return tuple(x.to(dev) for x in (p, g, m, v))
+
+    return dict(zip(CLASSIFIER_FIELDS, (leaf((256, 16)), leaf((256,)))))
+
+
+def _with_classifier(dev, count, seed):
+    """adam_update_with the classifier's two leaves as extra rows (lr 5e-4,
+    eps 1e-8) beside a 16-wide field (eps 1e-15) against the plain loop
+    leaf by leaf at each leaf's eps: (outputs, plain outputs, launches
+    counted). The Gaussians' eps would give the classifier other values."""
+    params, g, mu, nu = _inputs(1001, 16, dev, "joined", seed)
+    cls = _classifier(dev, seed)
+    state = AdamState(count=torch.full((), count, dtype=torch.int32, device=dev), mu=mu, nu=nu)
+    lrs = _lrs(dev, 16)
+    lr = torch.full((), CLASSIFIER_LR, dtype=torch.float32, device=dev)
+    before = ADAM.snapshot()
+    new_params, new_state, out = adam_update_with(
+        g, state, params, lrs, HYPER, [cls[f] + (lr, CLASSIFIER_EPS) for f in CLASSIFIER_FIELDS])
+    launched = ADAM.since(before)[0]
+    got = dict(_outputs(new_params, new_state),
+               **{f"classifier.{f}": o for f, o in zip(CLASSIFIER_FIELDS, out)})
+    bc1, bc2 = bias_corrections(state.count + 1, HYPER)
+
+    def plain(f, eps):
+        return optimizer._adam_plain(*cls[f], lr, bc1, bc2, HYPER, eps=eps)
+
+    want = dict(_plain(g, state, params, lrs),
+                **{f"classifier.{f}": plain(f, CLASSIFIER_EPS) for f in CLASSIFIER_FIELDS})
+    for f in CLASSIFIER_FIELDS:
+        assert not torch.equal(plain(f, HYPER.eps)[0], want[f"classifier.{f}"][0]), f
+    return got, want, launched
+
+
+def test_the_classifier_steps_at_its_own_eps_on_the_cpu():
+    got, want, launched = _with_classifier(torch.device("cpu"), 3, 31)
+    assert launched == 0
+    _assert_equal(got, want)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("count", [0, 9999])
+def test_two_eps_in_one_launch_match_the_plain_loop_bit_for_bit(count):
+    """The Gaussians' leaves at eps 1e-15 and the classifier's at 1e-8 in
+    one launch of the kernel: every output as the plain loop gives it at
+    each leaf's eps."""
+    got, want, launched = _with_classifier(_card(), count, 40 + count)
+    assert launched == 1
+    _assert_equal(got, want)

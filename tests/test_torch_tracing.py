@@ -33,6 +33,8 @@ from semantic_gaussians_torch.utils.logging_utils import ChunkClock
 STEP = ["project", "bin", "composite", "loss", "loss_bwd", "composite_bwd", "segsum",
         "project_bwd", "update"]
 FEATURE_LOSS = ["feat_loss", "feat_loss_bwd"]  # between loss and loss_bwd, with a feature field
+# between loss and loss_bwd with Gaussian Grouping: the 3D term's two on its steps alone
+GROUPING_LOSS = ["obj_loss", "reg3d", "reg3d_bwd", "obj_loss_bwd"]
 W, H = 64, 32
 CPU = torch.device("cpu")
 
@@ -69,7 +71,8 @@ CFG = TrainConfig(densify_from_iter=10_000)
 
 
 def test_phase_names_are_the_marker_kernels():
-    assert list(tracing.PHASES) == STEP[:4] + FEATURE_LOSS + STEP[4:] + ["carry", "between"]
+    assert list(tracing.PHASES) == (STEP[:4] + FEATURE_LOSS + GROUPING_LOSS + STEP[4:]
+                                    + ["carry", "between"])
     src = (kernels.CSRC / "phase.cu").read_text()
     for name in tracing.PHASES:
         assert f"  X({name})" in src
@@ -100,6 +103,30 @@ def test_a_feature_step_splits_its_loss_from_the_photometric_one():
     with tracing.recording() as names:
         train_step(state, cams[0], torch.zeros(3), cfg, 3, teacher=torch.zeros(H, W, d))
     assert _collapsed(names) == STEP[:4] + FEATURE_LOSS + STEP[4:]
+
+
+@pytest.mark.parametrize("reg3d", [False, True])
+def test_a_grouping_step_splits_its_terms_from_the_photometric_one(reg3d):
+    """With Gaussian Grouping the identity terms are phase obj_loss; on a
+    step with the 3D term, that term is reg3d, and its backward, which
+    autograd runs first, reg3d_bwd; the cross-entropy's backward is
+    obj_loss_bwd, and the photometric backward opens loss_bwd where the
+    field's gradient leaves the classifier."""
+    from semantic_gaussians_torch.core.gaussians import with_feature_field
+    from semantic_gaussians_torch.core.grouping import GroupingConfig, init_classifier
+
+    state, cams = _toy(CPU)
+    d = 16
+    params = with_feature_field(state.params, d, torch.full((state.params.capacity, d), 0.1))
+    state = init_train_state(params, state.alive,
+                             init_classifier(256, d, torch.Generator().manual_seed(0), CPU))
+    cfg = dataclasses.replace(CFG, feature_dim=d,
+                              grouping=GroupingConfig(reg3d_max_points=200, reg3d_sample=50))
+    with tracing.recording() as names:
+        train_step(state, cams[0], torch.zeros(3), cfg, 3,
+                   object_ids=torch.zeros((H, W), dtype=torch.uint8), reg3d=reg3d)
+    terms = GROUPING_LOSS if reg3d else [GROUPING_LOSS[0], GROUPING_LOSS[-1]]
+    assert _collapsed(names) == STEP[:4] + terms + STEP[4:]
 
 
 def test_train_scan_step_records_each_step_then_the_dispatch():
